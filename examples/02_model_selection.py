@@ -1,5 +1,5 @@
 """Hyperparameter selection: the reference-style serial sweep and the
-TPU-native batched sweep (one compiled program for the whole grid)."""
+Batched sweep (one compiled program for the whole grid)."""
 import numpy as np
 import jax.random as jr
 import poor_man_gplvm_tpu as pmg
@@ -21,7 +21,7 @@ print("best config (serial):", res["best_config"])
 print(res["model_eval_result_all_configs"][
     ["movement_variance", "metric_overall_best_value"]])
 
-# TPU-native: whole (config x chain) grid in ONE vmapped program
+# batched: whole (config x chain) grid in ONE vmapped program
 batched = sweep.sweep_fit_poisson_jump(
     y, {"movement_variance": [0.5, 2.0]}, n_repeat=2, n_iter=3,
     n_latent_bin=20, tuning_lengthscale=3.0, m_maxiter=50,

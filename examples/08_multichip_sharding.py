@@ -1,5 +1,5 @@
 """Multi-chip SPMD EM on a device mesh (runs on 8 virtual CPU devices when
-no multi-chip TPU is attached)."""
+fewer than 8 accelerators are attached)."""
 import os
 if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
     os.environ["XLA_FLAGS"] = (

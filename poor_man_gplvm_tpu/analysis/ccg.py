@@ -1,7 +1,7 @@
 """Spike-train correlograms (cross- and auto-), including the theta
 cycle-skipping index.
 
-TPU-native equivalent of the CCG capability in the reference's
+Equivalent of the CCG capability in the reference's
 ``cycle_skipping_CCG.ipynb`` notebook (compute_ccg_counts /
 compute_acg_counts / theta-skip index).  Vectorized: pairwise lags are
 gathered by a sliding searchsorted window instead of the notebook's

@@ -2,7 +2,7 @@
 distance-vs-label regression with permutation nulls, trajectory
 interpolation, and label transition matrices.
 
-TPU-native equivalent of reference poor_man_gplvm/distance_analysis.py.
+Equivalent of reference poor_man_gplvm/distance_analysis.py.
 """
 
 from __future__ import annotations

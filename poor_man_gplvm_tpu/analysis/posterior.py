@@ -1,7 +1,7 @@
 """Post-fit posterior analyses: weighted averages, state intervals,
 peri-event signals, population-vector distances, sequence matching.
 
-TPU-native equivalent of reference poor_man_gplvm/analysis_helper.py:11-192
+Equivalent of reference poor_man_gplvm/analysis_helper.py:11-192
 and :344-388.
 """
 

@@ -1,6 +1,6 @@
 """Reactivation analyses: pre/post epoch decoding with shuffle nulls.
 
-TPU-native equivalent of reference poor_man_gplvm/reactivation_analysis.py.
+Equivalent of reference poor_man_gplvm/reactivation_analysis.py.
 Two shuffle types (reference reactivation_analysis.py:14-19): circular spike
 shuffles within epoch (tests correlation structure vs single-neuron
 activation) and pre/post label permutation (tests whether the boundary

@@ -1,6 +1,6 @@
 """Pre/post-event regression with interaction.
 
-TPU-native equivalent of reference analysis_helper.py:206-341
+Equivalent of reference analysis_helper.py:206-341
 (``fit_time_prepost_interaction``): OLS of ``y ~ time_within * C(is_post)``
 with time z-scored within the pre/post sides, cluster-robust (by repeat) or
 HC1 standard errors.  Uses the internal OLS (statsmodels-free).

@@ -2,7 +2,7 @@
 
 The reference has no config system beyond ctor kwargs and per-call
 ``hyperparam`` dicts (SURVEY §5); those are preserved on the model
-classes.  This module adds TPU-deployment knobs that have no reference
+classes.  This module adds deployment knobs that have no reference
 counterpart.
 """
 
@@ -12,16 +12,13 @@ import importlib
 
 import jax
 
-__all__ = [
-    "set_matmul_precision", "get_matmul_precision", "set_scan_precision",
-]
+__all__ = ["set_matmul_precision", "get_matmul_precision"]
 
 #: Modules whose ``PRECISION`` global controls the emission / M-step
 #: statistics matmuls (the large (T, L) x (L, N) contractions).  The HMM
-#: scan-step matvecs (ops/hmm.py, ops/pallas/*) are deliberately NOT on
-#: this list: bf16 variants of the sequential recursion were measured at
-#: only ~1.2x for 3e-3 accuracy loss and rejected (PERFORMANCE.md), and
-#: they carry the <=1e-5 reference-parity guarantee.
+#: scan-step products (ops/hmm.py, ops/pallas/*) are deliberately NOT on
+#: this list: they carry the <=1e-5 reference-parity guarantee and stay
+#: f32-exact.
 _PRECISION_MODULES = (
     "poor_man_gplvm_tpu.ops.emissions",
     "poor_man_gplvm_tpu.ops.mstep",
@@ -41,23 +38,25 @@ _LEVELS = {
 
 
 def set_matmul_precision(level):
-    """Set the MXU precision of the emission / M-step statistics matmuls.
+    """Set the precision of the emission / M-step statistics matmuls.
 
-    Measured ladder at north-star shapes ((1e6, 500) x (500, 500), one
-    v5e chip — PERFORMANCE.md):
+    ``'highest'`` (the default) is f32-exact on every backend.  What the
+    lower levels mean depends on the backend's lowering of
+    ``jax.lax.Precision``.  Measured on an NVIDIA H100 for a
+    (200000, 500) @ (500, 500) f32 product (PERF.md):
 
     ==========  ===========  =========================
-    level       TFLOP/s      max relative element error
+    level       TFLOP/s      max error / max |result|
     ==========  ===========  =========================
-    'highest'   9.5          0 (f32 exact; the default)
-    'high'      14.3         1.3e-6 (bf16x3 passes)
-    'default'   17.6         4e-4 (single bf16 pass)
+    'highest'   40.8         1.2e-6 (f32; the default)
+    'high'      94.7         3.1e-4 (TF32)
+    'default'   91.5         3.0e-4 (TF32)
     ==========  ===========  =========================
 
-    'high' saves ~8-9% of a north-star EM iteration while staying inside
-    the 1e-5 reference-parity envelope for typical problem sizes;
-    'default' is for throughput-over-parity deployments.  The scan-step
-    recursions stay f32-HIGHEST regardless (see ``_PRECISION_MODULES``).
+    So on that card ``'high'`` and ``'default'`` both lower to TF32
+    tensor-core products, outside the 1e-5 log-marginal parity envelope
+    for large N.  The scan-step recursions stay f32-exact regardless (see
+    ``_PRECISION_MODULES``).
 
     Call before building models/fitting.  Already-compiled programs are
     dropped (``jax.clear_caches``); per-model fused-program caches are
@@ -81,18 +80,3 @@ def get_matmul_precision():
     from poor_man_gplvm_tpu.ops import emissions
 
     return emissions.PRECISION
-
-
-def set_scan_precision(mode):
-    """Set the matmul precision of the parallel-in-time scan recursions
-    ('highest' | 'bf16x3' | 'bf16') — the complementary knob to
-    :func:`set_matmul_precision`, which covers the emission/M-step
-    statistics matmuls.  See
-    :func:`poor_man_gplvm_tpu.ops.pallas.parallel_scan.set_scan_precision`
-    for the accuracy/speed ladder; model fused-program caches key on it,
-    so flipping it retraces automatically (standalone jitted programs
-    need ``jax.clear_caches()``)."""
-    from poor_man_gplvm_tpu.ops.pallas import parallel_scan
-
-    parallel_scan.set_scan_precision(mode)
-    jax.clear_caches()

@@ -1,6 +1,6 @@
 """Data ingestion layer: loaders, binning, bursts, CV, baseline decoders.
 
-TPU-native equivalent of the fork's root core.py (reference root core.py,
+Equivalent of the fork's root core.py (reference root core.py,
 1845 LoC) — host-side numpy/pandas I/O feeding the device-side model layer.
 """
 

@@ -1,6 +1,6 @@
 """Behavior loading and brain-behavior alignment.
 
-TPU-native equivalent of reference root core.py:846-906 (``load_behavior``:
+Equivalent of reference root core.py:846-906 (``load_behavior``:
 events.csv + optional SLEAP tracking) and core.py:686-812
 (``align_brain_and_behavior``: nearest-event join, speed outlier removal,
 interpolation, trial segmentation).

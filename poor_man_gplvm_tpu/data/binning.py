@@ -1,6 +1,6 @@
 """Spike binning: sliding-window counts/rates from spike times.
 
-TPU-native equivalent of the fork's binning routines (reference root
+Equivalent of the fork's binning routines (reference root
 core.py:49-211 ``compute_spike_rates``, core.py:215-390
 ``compute_spike_counts_old``, core.py:917-1036 ``compute_spike_counts``).
 Each windowing convention is preserved exactly; the overlapping-window

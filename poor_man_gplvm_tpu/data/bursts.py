@@ -1,6 +1,6 @@
 """Population-burst detection and cross-probe burst merging.
 
-TPU-native equivalent of reference root core.py:1375-1420
+Equivalent of reference root core.py:1375-1420
 (``detect_population_bursts``) and core.py:1221-1372 (cross-probe
 overlap-group merging).
 """

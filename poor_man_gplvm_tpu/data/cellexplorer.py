@@ -1,6 +1,6 @@
 """CellExplorer cell_metrics loading.
 
-TPU-native equivalent of reference root core.py:911-913 (struct->dict) and
+Equivalent of reference root core.py:911-913 (struct->dict) and
 core.py:1074-1218 (``load_cell_metrics``).
 """
 

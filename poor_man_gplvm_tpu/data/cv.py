@@ -1,6 +1,6 @@
 """Blocked cross-validation splits and dataset container.
 
-TPU-native equivalent of reference root core.py:1522-1609 (Hardcastle-style
+Equivalent of reference root core.py:1522-1609 (Hardcastle-style
 blocked CV: the test fold takes a 1/k_CV slice out of each of n_blocks
 contiguous blocks, so train/test interleave across the session).
 """

@@ -1,6 +1,6 @@
 """Baseline naive-Bayes decoders over discrete position bins.
 
-TPU-native equivalent of reference root core.py:1612-1845
+Equivalent of reference root core.py:1612-1845
 (``GaussianBayesDecoder``, ``PoissonBayesDecoder``).  Fitting and prediction
 are fully vectorized over classes (the reference loops over K,
 core.py:1643-1651, 1676-1681, 1751-1758, 1811-1825); predict additionally

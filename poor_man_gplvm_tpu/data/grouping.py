@@ -1,6 +1,6 @@
 """Unit collection across probes/regions and within-panel unit ordering.
 
-TPU-native equivalent of reference root core.py:1422-1516.
+Equivalent of reference root core.py:1422-1516.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Kilosort/Phy output loading.
 
-TPU-native equivalent of the fork's Kilosort layer (reference root
+Equivalent of the fork's Kilosort layer (reference root
 core.py:16-390): cluster-label TSVs, params.py sampling rate, unit-label
 filtering, sliding-window rates/counts.
 """

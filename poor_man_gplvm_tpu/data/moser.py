@@ -1,6 +1,6 @@
 """Moser-lab navigation session preprocessing.
 
-TPU-native equivalent of reference root core.py:392-684
+Equivalent of reference root core.py:392-684
 (``preprocess_moser_data``): MAT ``Dsession`` struct -> sliding-window spike
 counts + interpolated 3-D tracking.  Returns SEVEN values (the reference's
 own driver script unpacks only six and would crash — reference

@@ -1,6 +1,6 @@
 """Native (C++) binning kernels, compiled lazily and loaded via ctypes.
 
-The reference has no native code (SURVEY.md §2: all-Python); the TPU
+The reference has no native code (SURVEY.md §2: all-Python); this
 framework's runtime layer uses native kernels for the host-side ingestion
 hot path (binning 1e7+ spikes).  Falls back transparently to the vectorized
 numpy implementations in :mod:`poor_man_gplvm_tpu.data.binning` when no

@@ -1,6 +1,6 @@
 """Unit quality metrics.
 
-TPU-native equivalent of the fork's presence-ratio metric.  The reference
+Equivalent of the fork's presence-ratio metric.  The reference
 defines ``get_presence_ratio`` TWICE (root core.py:814-844 and
 core.py:1039-1071 — the second shadows the first); this module implements
 the surviving (second) definition, whose coarse-bin edges extend one fine

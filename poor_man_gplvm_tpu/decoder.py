@@ -1,7 +1,7 @@
 """Reference-compatible decoder module (drop-in import surface).
 
 Mirrors the reference's ``poor_man_gplvm.decoder`` function names and
-signatures (reference decoder.py), implemented on the TPU-native engine:
+signatures (reference decoder.py), implemented on this package's engine:
 likelihoods from :mod:`poor_man_gplvm_tpu.ops.emissions`, filtering/
 smoothing from :mod:`poor_man_gplvm_tpu.ops.hmm`.
 """

@@ -1,6 +1,6 @@
 """Reference-compatible latent-only decoder module.
 
-Mirrors ``poor_man_gplvm.decoder_latentonly`` on the TPU-native engine.
+Mirrors ``poor_man_gplvm.decoder_latentonly`` on this package's engine.
 """
 
 from __future__ import annotations

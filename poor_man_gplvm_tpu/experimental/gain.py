@@ -1,6 +1,6 @@
 """Experimental: Poisson jump model with a time-varying population gain.
 
-TPU-native equivalent of reference poor_man_gplvm/experimental/
+Equivalent of reference poor_man_gplvm/experimental/
 (core_exp.py, fit_tuning_helper_exp.py, decoder_exp.py, test_exp.py):
 rate(t, n) = g_t * lambda(x_t, n).  The gain M-step is the per-time MLE
 ``g_t = total spikes_t / total expected rate_t``
@@ -21,13 +21,13 @@ import jax
 import jax.numpy as jnp
 import jax.random as jr
 import numpy as np
-import tqdm
 from jax.scipy.special import logsumexp, xlogy
 from jax.scipy.stats import norm
 
 from poor_man_gplvm_tpu.models.jump1d import PoissonGPLVMJump1D
 from poor_man_gplvm_tpu.ops import emissions, hmm
 from poor_man_gplvm_tpu.utils import compat
+from poor_man_gplvm_tpu.utils.progress import progress
 from poor_man_gplvm_tpu.ops import kernels as gpk
 from poor_man_gplvm_tpu.ops import mstep as fth
 from poor_man_gplvm_tpu.ops.emissions import PRECISION
@@ -321,7 +321,7 @@ class PoissonGPLVMGain1D_gain(PoissonGPLVMJump1D):
         log_marginal_l = []
         m_step_res_l = {}
 
-        for i in tqdm.trange(n_iter, desc="EM(gain)", disable=not verboase):
+        for i in progress(range(n_iter), verboase, desc="EM(gain)"):
             m_step_res = self.m_step(
                 param_curr, y, log_posterior_curr, self.tuning_basis,
                 hyperparam_, opt_state_curr, gain_curr, host_trim=False,
@@ -399,9 +399,9 @@ def shuffle_and_decode_gain(model, spk_mat, n_shuffle=100, seed=None,
     from poor_man_gplvm_tpu.validation import circular_shuffle_data
 
     decoding_res_l = []
-    for y_sh in tqdm.tqdm(
+    for y_sh in progress(
         circular_shuffle_data(spk_mat, n_shuffle=n_shuffle, seed=seed),
-        total=n_shuffle, disable=not verbose,
+        verbose, total=n_shuffle,
     ):
         decoding_res_l.append(
             model.decode_latent_naive_bayes(y_sh, **decode_kwargs)

@@ -1,6 +1,6 @@
 """Latent-posterior initializers: PCA-based and supervised-label-based.
 
-TPU-native equivalent of reference poor_man_gplvm/initializer.py.
+Equivalent of reference poor_man_gplvm/initializer.py.
 """
 
 from __future__ import annotations

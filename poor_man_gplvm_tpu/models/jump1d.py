@@ -1,6 +1,6 @@
 """Jump models: smooth 1-D latent + 2-state (continuous/jump) dynamics HMM.
 
-TPU-native equivalents of reference ``AbstractGPLVMJump1D``,
+Equivalents of reference ``AbstractGPLVMJump1D``,
 ``PoissonGPLVMJump1D`` (flagship) and ``GaussianGPLVMJump1D``
 (reference: poor_man_gplvm/core.py:376-916).
 """

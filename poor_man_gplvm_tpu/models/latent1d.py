@@ -1,6 +1,6 @@
 """Latent-only models: smooth 1-D latent, no dynamics HMM.
 
-TPU-native equivalents of reference ``AbstractGPLVM1D``, ``PoissonGPLVM1D``
+Equivalents of reference ``AbstractGPLVM1D``, ``PoissonGPLVM1D``
 and ``GaussianGPLVM1D`` (reference: poor_man_gplvm/core.py:76-373, 919-1094).
 """
 

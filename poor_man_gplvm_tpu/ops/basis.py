@@ -1,6 +1,6 @@
 """Tuning-curve basis generation.
 
-TPU-native equivalent of the reference's ``generate_basis``
+Equivalent of the reference's ``generate_basis``
 (reference: poor_man_gplvm/core.py:41-73): SVD of the (L, L) RBF Gram
 matrix, keep the leading ``n_basis`` singular vectors scaled by the fourth
 root of the singular values, prepend a bias column.

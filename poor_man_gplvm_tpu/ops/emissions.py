@@ -1,11 +1,11 @@
-"""Emission log-likelihoods, in MXU-friendly matmul form.
+"""Emission log-likelihoods, in matmul form.
 
-TPU-native redesign of the reference emission layer
+Redesign of the reference emission layer
 (reference: poor_man_gplvm/decoder.py:30-149).
 
 The reference computes the (T, L) log-likelihood with a vmap over time of an
-elementwise (L, N) reduction.  On TPU the same quantity is exactly two
-matmuls, which XLA places on the 128x128 systolic array (MXU):
+elementwise (L, N) reduction.  Here the same quantity is exactly two
+matmuls, which XLA hands to the accelerator's matmul units:
 
 Poisson (lam = tuning*dt + RATE_FLOOR, all entries > 0 so xlogy == y*log):
     ll[t, l] = (ma*y)[t] @ log(lam)[l]  -  ma[t] @ lam[l]
@@ -32,9 +32,10 @@ from jax.scipy.special import gammaln, logsumexp
 RATE_FLOOR = 1e-20
 MASK_NEG = -1e20
 
-# Log-likelihoods feed log-marginal parity targets (<=1e-5 relative), so the
-# MXU must run these contractions at float32 accuracy (6-pass bf16), not the
-# TPU default bf16 inputs.  Switchable for throughput experiments.
+# Log-likelihoods feed log-marginal parity targets (<=1e-5 relative), so
+# these contractions run at float32 accuracy, not the accelerator's default
+# reduced-precision inputs (TF32 on GPUs).  Switchable with
+# config.set_matmul_precision.
 PRECISION = jax.lax.Precision.HIGHEST
 
 __all__ = [
@@ -75,7 +76,7 @@ def poisson_lgamma_term(y, ma_neuron):
 
 
 def poisson_loglik(y, tuning, ma_neuron, ma_latent, dt=1.0, lgamma_term=None):
-    """(T, L) Poisson log-likelihood via MXU matmuls.
+    """(T, L) Poisson log-likelihood via matmuls.
 
     y: (T, N) counts; tuning: (L, N) rates; ma_neuron: (N,) or (T, N);
     ma_latent: (L,); dt: scalar or (T,); lgamma_term: optional precomputed

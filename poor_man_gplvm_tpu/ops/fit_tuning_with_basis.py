@@ -1,6 +1,6 @@
 """Legacy per-neuron LBFGS M-step on grouped statistics.
 
-TPU-native equivalent of reference poor_man_gplvm/fit_tuning_with_basis.py
+Equivalent of reference poor_man_gplvm/fit_tuning_with_basis.py
 (the pre-Adam fitting path, kept for parity): params are a (weights, bias)
 tuple per neuron, the objective is the grouped Poisson log joint normalized
 by the latent-bin count, and the solver is LBFGS vmapped over neurons.
@@ -143,7 +143,8 @@ def m_step_get_tuning_all_neuron_grouped(
 
 def get_s_b(spk_chunk, post_x_l):
     """Posterior-weighted spikes per latent state, (L, N)
-    (reference fit_tuning_with_basis.py:55-57)."""
+    (reference fit_tuning_with_basis.py:55-57), at the module's
+    ``PRECISION``."""
     import jax.numpy as jnp
 
-    return jnp.matmul(post_x_l.T, spk_chunk)
+    return jnp.matmul(post_x_l.T, spk_chunk, precision=PRECISION)

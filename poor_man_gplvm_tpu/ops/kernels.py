@@ -1,13 +1,13 @@
 """Kernel functions and transition-matrix builders.
 
-TPU-native reimplementation of the reference kernel layer
+Reimplementation of the reference kernel layer
 (reference: poor_man_gplvm/gp_kernel.py:14-149).  Instead of the reference's
 vmap-of-vmap over scalar kernel closures, every kernel here is built as one
 vectorized broadcast over the full (L, L) grid, which XLA lowers to a handful
 of fused VPU ops — no per-element dispatch, static shapes throughout.
 
 Every kernel returns ``(val, log_val)`` pairs like the reference so that both
-probability-space (fast TPU path) and log-space (exactness path) inference
+probability-space (fast path) and log-space (exactness path) inference
 engines share one source of truth.
 """
 
@@ -70,7 +70,7 @@ def discrete_transition_kernel(x, y, trans_mat):
 
 
 # ---------------------------------------------------------------------------
-# vectorized Gram builders (TPU-native path)
+# vectorized Gram builders (device path)
 # ---------------------------------------------------------------------------
 
 def rbf_gram(points, ls, var=1.0):

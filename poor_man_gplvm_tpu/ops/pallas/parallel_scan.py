@@ -1,14 +1,11 @@
 """Parallel-in-time (chunked fixed-point) forward-backward scans.
 
-The sequential Pallas scan kernels (``scan_kernels.py``) are latency-bound at
-~1.5 us per timestep on the dependent (1, L) @ (L, L) matvec — at the
-north-star scale (T=1e6, L=500) that is ~1.6 s per direction per EM
-iteration, with the MXU <1% utilized.  These kernels break the latency wall
-by advancing C chunks of the sequence SIMULTANEOUSLY: each sequential step
-performs one batched (C, L) @ (L, L) matmul per dynamics channel, which
-costs nearly the same wall-clock as the single-row matvec (measured ~1.2
-us/step at C=64, L=512 on a TPU v5e) — C times the work for the price of
-one.
+A sequential scan pays one dependent (1, L) @ (L, L) product per time step.
+These passes advance C chunks of the sequence SIMULTANEOUSLY: each
+sequential step performs one batched (C, L) @ (L, L) product per dynamics
+channel, which costs about as much wall-clock as the single-row product —
+C times the work for the price of one step.  The passes are plain ``lax``:
+XLA hands each step's batched product to the GPU's matmul libraries.
 
 Chunk c's recursion needs the carry (filter posterior / smoothed posterior)
 at its boundary, which chunk c-1 produces.  We solve for the boundary
@@ -24,36 +21,30 @@ warmup-window approximation the result carries a convergence certificate.
 Convergence is geometric in the filter's forgetting rate: the jump channel's
 uniform transition row gives the joint chain a Doeblin minorization
 (T(s, .) >= p_move_to_jump * uniform), so a boundary perturbation decays at
-least like (1 - p_mj)^t inside a chunk; with chunks of ~15k steps the
-iteration settles in 2 passes for any practical hyperparameters.  The pass
-count is capped at C, at which point the result is exact by induction
+least like (1 - p_mj)^t inside a chunk; with chunks of thousands of steps
+the iteration settles in 2 passes for any practical hyperparameters.  The
+pass count is capped at C, at which point the result is exact by induction
 (pass k makes chunk k's input exact) — the pathological worst case costs
 the same total steps as one sequential sweep.
 
-Memory discipline (the north-star working set barely fits one chip): the
-fixed-point loops run FINALS-ONLY kernels that emit just the (n_dyn, C, Lp)
-boundary carries, then a single emitting pass runs with the converged
-boundaries.  The backward kernel accumulates the pairwise-joint statistic
-``acc[d,e,i,j] = sum_t filt[t,d,i] * r[t,e,j]`` on-chip in a VMEM scratch
-(4 MB at L=512) via per-block (Lp, bt*C) @ (bt*C, Lp) matmuls, so the (T,
-n_dyn, C, Lp) smoother-ratio array is never materialized in HBM, and the
-per-step log-marginal normalizers are reconstructed outside the kernel from
-the stored posteriors with one batched transition push (s_t =
-<push(post_{t-1}), w_t>).
+The fixed-point loops run FINALS-ONLY passes that keep just the
+(n_dyn, C, L) boundary carries, then a single emitting pass runs with the
+converged boundaries.  The pairwise-joint statistic
+``acc[d,e,i,j] = sum_t filt[t,d,i] * r[t,e,j]`` is one post-scan
+contraction over the stored posteriors and smoother ratios.
 
-Numerics are identical per step to the ``prob``/``pallas`` engines (scaled
+Numerics are identical per step to the ``prob`` engine (scaled
 probability-space recursions, f32, Precision.HIGHEST dots), so parity with
 the reference (<=1e-5 relative log-marginal, BASELINE.json) is preserved.
 
-Layouts: time-within-chunk-major.  ``w_c``/``post_c``/``smooth_c`` are
-(Tcp, [n_dyn,] C, Lp) with Lp = L rounded up to the 128-lane width and
-Tcp = ceil(T/C) rounded up to the block sizes; per-step loads/stores are
-then contiguous (C, Lp) tiles.  Chunk c owns global rows [c*tc_eff,
+Layout: time-within-chunk-major.  ``w_c``/``post_c``/``smooth_c`` are
+(tc_eff, [n_dyn,] C, L) with tc_eff = ceil(T/C); each step reads and writes
+one contiguous (C, L) tile.  Chunk c owns global rows [c*tc_eff,
 (c+1)*tc_eff) clipped to T; rows outside the valid range are hard no-ops
 for the carry.
 
 Reference parity targets: poor_man_gplvm/decoder.py:151-332 (the sequential
-recursions these kernels reproduce), decoder.py:258-332 (chunked driver
+recursions these passes reproduce), decoder.py:258-332 (chunked driver
 contract).
 """
 
@@ -64,256 +55,118 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from poor_man_gplvm_tpu.ops.emissions import PRECISION
-from poor_man_gplvm_tpu.ops.pallas.scan_kernels import (
-    LANE,
-    _interpret,
-    _round_up,
-)
 
 HIGHEST = jax.lax.Precision.HIGHEST
 
+#: chunks advanced per step by default.  The pass time is set by its
+#: sequential step count, so larger C is faster: one E-step at T=1e6,
+#: L=500 took 2.74 / 1.46 / 0.93 / 0.65 s at C=64 / 128 / 256 / 512 on an
+#: H100 (PERF.md)
+DEFAULT_C = 512
 
-# ---------------------------------------------------------------------------
-# configuration
-# ---------------------------------------------------------------------------
+#: each chunk should amortize its boundary solve over at least this many
+#: steps; shorter sequences use fewer chunks
+MIN_CHUNK_LEN = 128
 
-
-#: manual override for the parallel-scan launch config — the supported
-#: escape hatch at the HBM edge (see set_config_override)
-_CONFIG_OVERRIDE = None
-
-#: matmul precision of the fixed-point recursion dots (see
-#: set_scan_precision); "highest" = f32-exact (6 MXU passes / dot)
-_SCAN_PRECISION = "highest"
-
-
-def set_scan_precision(mode):
-    """Set the matmul precision of the parallel-scan recursion dots.
-
-    - ``"highest"`` (default): f32-exact (6-pass bf16x6 on the MXU) —
-      reference-parity numerics, the only mode the parity suite certifies.
-    - ``"bf16x3"``: 3-pass hi/lo-split emulation (~5e-7 element error on
-      the recursion dots; the per-step normalization keeps it from
-      accumulating).  Mosaic rejects ``Precision.HIGH`` inside kernels, so
-      the split is hand-rolled (a = a_hi + a_lo in bf16; a@b ~ a_hi@b_hi +
-      a_lo@b_hi + a_hi@b_lo).
-    - ``"bf16"``: 1-pass bf16 (~1e-3 posterior error — the same order the
-      ``filter_bf16`` memory mode already accepts for its stored filter).
-
-    Trace-time knob: models pick it up through their fused-program cache
-    keys (``scan_mode_key`` below), but an already-jitted standalone
-    program keeps the precision it was traced with — call before the
-    first fit/decode at a given shape or ``jax.clear_caches()``.  Every
-    fast-path solve remains certified by the emit pass's post-hoc
-    residual regardless of mode (fit_em raises above 1e-3)."""
-    global _SCAN_PRECISION
-    if mode not in ("highest", "bf16x3", "bf16"):
-        raise ValueError(f"unknown scan precision {mode!r}")
-    _SCAN_PRECISION = mode
-
-
-def scan_mode_key():
-    """(config override, scan precision) — trace-relevant module state for
-    callers that cache traced programs keyed on static config (the model
-    layer's _fused_prog_cache includes this so knob flips retrace)."""
-    return (_CONFIG_OVERRIDE, _SCAN_PRECISION)
-
-
-def _split_bf16(x):
-    """x (f32) -> (hi, lo) bf16 pair with hi + lo ~ x (hi the rounding,
-    lo the residual): the operand split for 3-pass f32 emulation."""
-    hi = x.astype(jnp.bfloat16)
-    lo = (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, lo
-
-
-def _scan_dot(a, b, b_hilo, scan_prec):
-    """One recursion dot under ``scan_prec``.  ``b_hilo`` is the weight
-    operand's precomputed bf16 (hi, lo) split — loop-invariant inside the
-    kernels, so callers hoist it out of the sequential step loop."""
-    if scan_prec == "highest":
-        return jnp.dot(a, b, preferred_element_type=jnp.float32,
-                       precision=HIGHEST)
-    b_hi, b_lo = b_hilo if b_hilo is not None else _split_bf16(b)
-    if scan_prec == "bf16":
-        return jnp.dot(a.astype(jnp.bfloat16), b_hi,
-                       preferred_element_type=jnp.float32)
-    a_hi, a_lo = _split_bf16(a)
-    return (
-        jnp.dot(a_hi, b_hi, preferred_element_type=jnp.float32)
-        + jnp.dot(a_lo, b_hi, preferred_element_type=jnp.float32)
-        + jnp.dot(a_hi, b_lo, preferred_element_type=jnp.float32)
-    )
-
-
-def set_config_override(cfg):
-    """Force the fixed-point scan launch config to ``cfg = (C, block_t_fwd,
-    block_t_bwd)``, or restore auto-choice with ``None``.
-
-    The known-lean fallback at large L is ``(64, 8, 8)`` — use it if a
-    near-HBM-capacity fit RESOURCE_EXHAUSTs (the auto config trades ~2 GB
-    of headroom for ~4% speed).  Call BEFORE the first fit/decode at a
-    given shape: compiled programs cache the config they were traced with
-    (clear ``model._fused_prog_cache`` or ``jax.clear_caches()`` to force
-    a re-trace)."""
-    global _CONFIG_OVERRIDE
-    _CONFIG_OVERRIDE = cfg
+#: strict fixed-point tolerance on the boundary carries (max abs change
+#: per pass).  On an H100, 1e-8 left the largest posterior difference
+#: against the sequential engine unchanged (PERF.md) and adds passes.
+STRICT_TOL = 1e-6
 
 
 def choose_parallel_config(T, L, n_dyn):
-    """Pick (C, block_t_fwd, block_t_bwd) for the fixed-point scans.
+    """The chunk count C for the fixed-point scans, or None when the
+    sequence is too short to chunk (fall back to a sequential engine).
 
-    The config deliberately does NOT key on whether the caller wants the
-    pairwise-joint accumulator (``want_acc``): the backward block budget
-    is sized for the with-acc case (see ``bt_b`` comment below), so a
-    want_acc=False caller gets the identical launch config and XLA/jit
-    caches one program per shape, not two.
-
-    C is bounded by VMEM (~16 MB): per grid step the forward kernel streams
-    a (bt, C, Lp) weight block in and a (bt, n_dyn, C, Lp) posterior block
-    out (double-buffered), while the backward kernel additionally holds the
-    prior and smoother-ratio scratches, the on-chip joint accumulator and
-    both transition matrices — so its block is smaller.  Returns None when
-    the problem is too small to benefit (fall back to the sequential pallas
-    engine)."""
-    Lp = _round_up(L, LANE)
-    nd = max(1, n_dyn)
-
-    # non-"highest" scan precision hoists hi/lo bf16 splits of the latent
-    # transition operands into kernel VMEM: up to 2 (Lp, Lp) bf16 copies
-    # per dynamics channel in the forward kernel, 4 in the backward
-    # (tlat + tlatT).  Budget for the worst case (no uniform-row channel)
-    # so the auto config can't tip Mosaic's scoped-VMEM limit when
-    # set_scan_precision != "highest" (trace-time state, part of
-    # scan_mode_key so flips re-choose).
-    split_bytes = (
-        4 * nd * Lp * Lp * 2 if _SCAN_PRECISION != "highest" else 0
-    )
-
-    def bwd_vmem(C, bt):
-        blocks = bt * nd * C * Lp * 4
-        fixed = 2 * nd * Lp * Lp * 4 + 3 * nd * C * Lp * 4 + split_bytes
-        # marginal emit: post in (x2), latmarg out (x2), prior + r
-        # scratches, on-chip acc accumulator
-        marg = 2 * blocks + (2 * blocks) // nd + 2 * blocks \
-            + (nd * Lp) ** 2 * 4 + fixed
-        # full emit: post in (x2), smooth out (x2), r out (x2), prior
-        # scratch — acc is computed outside the kernel in this mode
-        full = 2 * blocks + 2 * blocks + 2 * blocks + blocks + fixed
-        return max(marg, full)
-
-    # Measured on one v5e at T=1e6, L=500: full fused-EM north-star
-    # (128,8,2) 0.379 s/iter vs (64,8,8) 0.394 — C=128 fills the MXU's
-    # 128 rows per step and the small backward block keeps the
-    # (bt, nd, C, Lp) double buffers light.  HISTORY: before the fused
-    # program donated its (T, L) posterior carry, C=128 at Lp>256
-    # RESOURCE_EXHAUSTED the north-star program (the carry alias buys the
-    # ~2 GB that the C=128 kernels' extra footprint costs) — if this
-    # config ever OOMs again, C=64/bt_b=8 is the known-lean fallback.
-    # bt_b stays 2 at Lp>256 even with ``want_acc=False``: a 4-row
-    # backward block measured a few % faster in isolation but its bigger
-    # block buffers tip the full north-star program into
-    # RESOURCE_EXHAUSTED (re-measured standalone 2026-08-19), same as
-    # (128,16,4).
-    if _CONFIG_OVERRIDE is not None:
-        # an override is honored for C/bt_f but still passes through the
-        # VMEM budget clamps below — a too-large backward block would
-        # otherwise fail deep inside Mosaic compilation with no hint that
-        # the override caused it (this knob exists for OOM recovery)
-        C, bt_f, bt_b = _CONFIG_OVERRIDE
-    else:
-        C = 128
-        bt_f = 16 if Lp <= 256 else 8
-        bt_b = bt_f if Lp <= 256 else 2
-    # the kernels request a raised scoped-VMEM limit (v5e has 128 MB
-    # physical VMEM; the 16 MB default is only the scoped cap), so the
-    # budget here mainly bounds double-buffer bloat
-    budget = 40 << 20
-    while bwd_vmem(C, bt_b) > budget and bt_b > 2:
-        bt_b //= 2
-    while bwd_vmem(C, bt_b) > budget and C > 8:
+    C starts at ``DEFAULT_C`` and halves until every chunk holds at least
+    ``MIN_CHUNK_LEN`` steps.  ``L`` and ``n_dyn`` are accepted for the
+    callers' sake; the choice depends on T only."""
+    del L, n_dyn
+    C = DEFAULT_C
+    while C > 2 and T < C * MIN_CHUNK_LEN:
         C //= 2
-    # each chunk should amortize its boundary solve over >= ~8 blocks
-    while C > 2 and T < C * bt_f * 8:
-        C //= 2
-    if C < 2 or T < 4 * bt_f:
+    if T < C * MIN_CHUNK_LEN:
         return None
-    return C, bt_f, bt_b
+    return C
 
 
 # ---------------------------------------------------------------------------
-# pure-JAX reference passes (off-TPU: CPU tests, shard_map interpret)
-#
-# Bit-compatible-in-structure lax.scan equivalents of the Pallas pass
-# kernels, used when the backend is not a TPU.  Besides serving tests,
-# they sidestep interpret-mode pallas' varying-mesh-axes limitations under
-# jax.shard_map.
+# passes
 # ---------------------------------------------------------------------------
 
 
-def _pfilter_pass_ref(w_c, tlat_p, tdyn, ins, *, C, block_t, tc_eff,
-                      n_valid, uniform_rows, finals_only, out_vma=None):
-    Tcp = w_c.shape[0]
+def _pfilter_pass(w_c, tlat, tdyn, ins, *, tc_eff, n_valid, finals_only):
+    """Forward (causal filter) pass over all C chunks at once.
+
+    w_c: (tc_eff, C, L) likelihood weights; ins: (n_dyn, C, L) chunk-start
+    carries.  Returns (post (tc_eff, n_dyn, C, L), svals (tc_eff, C), fin)
+    — the per-step normalizers svals are 1.0 on invalid rows — or
+    (None, None, fin) when ``finals_only``."""
+    C = w_c.shape[1]
     nv = jnp.asarray(n_valid, dtype=jnp.int32)
     chunk_off = jnp.arange(C, dtype=jnp.int32) * tc_eff
 
     def step(carry, inp):
         tau, w_t = inp
         q = jnp.einsum("pcl,pd->dcl", carry, tdyn, precision=HIGHEST)
-        prior = jnp.einsum("dci,dij->dcj", q, tlat_p, precision=HIGHEST)
+        prior = jnp.einsum("dci,dij->dcj", q, tlat, precision=HIGHEST)
         u = prior * w_t[None]
         ssum = jnp.sum(u, axis=(0, 2))  # (C,)
         new = u / jnp.maximum(ssum[None, :, None], 1e-38)
         valid = (chunk_off + tau) < nv
-        if Tcp != tc_eff:
-            valid = jnp.logical_and(valid, tau < tc_eff)
         new = jnp.where(valid[None, :, None], new, carry)
+        if finals_only:
+            return new, None
         sv = jnp.where(valid, jnp.maximum(ssum, 1e-38), 1.0)
         return new, (new, sv)
 
-    taus = jnp.arange(Tcp, dtype=jnp.int32)
-    fin, (post, svals) = lax.scan(step, ins, (taus, w_c))
+    taus = jnp.arange(tc_eff, dtype=jnp.int32)
+    fin, out = lax.scan(step, ins, (taus, w_c))
     if finals_only:
         return None, None, fin
+    post, svals = out
     return post, svals, fin
 
 
-def _psmooth_pass_ref(post_c, tlat_p, tlatT_p, tdyn, ins, *, C, block_t,
-                      tc_eff, n_valid, uniform_rows, marginal, finals_only,
-                      want_acc=True, out_vma=None):
-    Tcp = post_c.shape[0]
+def _psmooth_pass(post_c, tlat, tdyn, ins, *, tc_eff, n_valid, marginal,
+                  finals_only, want_acc=True):
+    """Backward (acausal smoother) pass over all C chunks at once.
+
+    post_c: (tc_eff, n_dyn, C, L) filter posteriors; the +1-shifted causal
+    priors are rebuilt with one batched push.  Returns ``(fin,)`` when
+    ``finals_only``; ``(latmarg, dynm, acc, fin)`` (``acc`` omitted when
+    not ``want_acc``) when ``marginal``; else ``(smooth, r, fin)``.  ``acc``
+    is the raw pairwise contraction before the transition weighting."""
+    C = post_c.shape[2]
     nv = jnp.asarray(n_valid, dtype=jnp.int32)
     chunk_off = jnp.arange(C, dtype=jnp.int32) * tc_eff
     q = jnp.einsum("tpcl,pd->tdcl", post_c, tdyn, precision=HIGHEST)
-    prior_c = jnp.einsum("tdci,dij->tdcj", q, tlat_p, precision=HIGHEST)
+    prior_c = jnp.einsum("tdci,dij->tdcj", q, tlat, precision=HIGHEST)
+    tlatT = jnp.swapaxes(tlat, -1, -2)
 
     def step(carry, inp):
         tau, p_filt, p_prior = inp
         safe = jnp.where(p_prior > 0, p_prior, 1.0)
         r = jnp.where(p_prior > 0, carry / safe, 0.0)
+        # recursion domain is t in [0, T-2]; row T-1 keeps the carry
         valid = (chunk_off + tau) < (nv - 1)
-        if Tcp != tc_eff:
-            valid = jnp.logical_and(valid, tau < tc_eff)
         r = jnp.where(valid[None, :, None], r, 0.0)
-        pull_s = jnp.einsum("ecl,elj->ecj", r, tlatT_p, precision=HIGHEST)
+        pull_s = jnp.einsum("ecl,elj->ecj", r, tlatT, precision=HIGHEST)
         pull = jnp.einsum("de,ecl->dcl", tdyn, pull_s, precision=HIGHEST)
         sm = p_filt * pull
         norm = jnp.sum(sm, axis=(0, 2), keepdims=True)
         new = jnp.where(
             valid[None, :, None], sm / jnp.maximum(norm, 1e-38), carry
         )
+        if finals_only:
+            return new, None
         return new, (new, r)
 
-    taus = jnp.arange(Tcp, dtype=jnp.int32)
-    fin, (smooth, r) = lax.scan(
-        step, ins, (taus, post_c, prior_c), reverse=True
-    )
+    taus = jnp.arange(tc_eff, dtype=jnp.int32)
+    fin, out = lax.scan(step, ins, (taus, post_c, prior_c), reverse=True)
     if finals_only:
         return (fin,)
+    smooth, r = out
     if marginal:
         latmarg = jnp.sum(smooth, axis=1)
         dynm = jnp.sum(smooth, axis=3)
@@ -327,401 +180,13 @@ def _psmooth_pass_ref(post_c, tlat_p, tlatT_p, tdyn, ins, *, C, block_t,
 
 
 # ---------------------------------------------------------------------------
-# forward (causal filter) pass kernel
-# ---------------------------------------------------------------------------
-
-
-def _pfilter_kernel(nv_ref, w_ref, tlat_ref, tdyn_ref, ins_ref, *refs,
-                    n_dyn, C, block_t, tc_eff, masked_tail,
-                    uniform_rows, finals_only, scan_prec="highest"):
-    if finals_only:
-        final_ref, carry_ref = refs
-        post_ref = sval_ref = None
-    else:
-        post_ref, sval_ref, final_ref, carry_ref = refs
-    g = pl.program_id(0)
-
-    @pl.when(g == 0)
-    def _():
-        carry_ref[:] = ins_ref[:]
-
-    # weight splits are loop-invariant: hoist them out of the step loop
-    tlat_hilo = [
-        _split_bf16(tlat_ref[d])
-        if scan_prec != "highest" and not uniform_rows[d] else None
-        for d in range(n_dyn)
-    ]
-
-    chunk_off = jax.lax.broadcasted_iota(jnp.int32, (C, 1), 0) * tc_eff
-
-    def body(t, _):
-        tau = g * block_t + t  # time-within-chunk
-        w = w_ref[pl.ds(t, 1)][0]  # (C, Lp)
-        priors = []
-        for d in range(n_dyn):
-            q_d = tdyn_ref[0, d] * carry_ref[0]
-            for p_ in range(1, n_dyn):
-                q_d = q_d + tdyn_ref[p_, d] * carry_ref[p_]
-            if uniform_rows[d]:
-                # constant transition matrix: matvec collapses to a row sum
-                priors.append(
-                    jnp.sum(q_d, axis=1, keepdims=True)
-                    * tlat_ref[d, 0:1, :]
-                )
-            else:
-                priors.append(
-                    _scan_dot(q_d, tlat_ref[d], tlat_hilo[d], scan_prec)
-                )
-        s = None
-        us = []
-        for d in range(n_dyn):
-            u_d = priors[d] * w
-            us.append(u_d)
-            sd = jnp.sum(u_d, axis=1, keepdims=True)
-            s = sd if s is None else s + sd
-        inv = 1.0 / jnp.maximum(s, 1e-38)
-        valid = (chunk_off + tau) < nv_ref[0, 0]  # (C, 1)
-        if masked_tail:  # Tcp > tc_eff: padding rows are hard no-ops
-            valid = jnp.logical_and(valid, tau < tc_eff)
-        for d in range(n_dyn):
-            new_d = jnp.where(valid, us[d] * inv, carry_ref[d])
-            carry_ref[d] = new_d
-            if not finals_only:
-                post_ref[pl.ds(t, 1), d] = new_d[None]
-        if not finals_only:
-            # the per-step normalizer IS the log-marginal ratio ingredient;
-            # emitting it here saves a whole reconstruction sweep outside
-            sval_ref[pl.ds(t, 1), :] = jnp.where(
-                valid, jnp.maximum(s, 1e-38), 1.0
-            ).reshape(1, C)
-        return 0
-
-    jax.lax.fori_loop(0, block_t, body, 0)
-    final_ref[:] = carry_ref[:]
-
-
-def _pfilter_pass(w_c, tlat_p, tdyn, ins, *, C, block_t, tc_eff, n_valid,
-                  uniform_rows, finals_only, scan_prec="highest",
-                  out_vma=None):
-    if _interpret():  # off-TPU: the pure-JAX scan reference (f32-exact)
-        return _pfilter_pass_ref(
-            w_c, tlat_p, tdyn, ins, C=C, block_t=block_t, tc_eff=tc_eff,
-            n_valid=n_valid, uniform_rows=uniform_rows,
-            finals_only=finals_only,
-        )
-    # out_vma: varying-mesh-axes for the outputs when called inside a
-    # jax.shard_map body (pallas outputs must declare their vma there)
-    def _sds(shape):
-        if out_vma is None:
-            return jax.ShapeDtypeStruct(shape, jnp.float32)
-        return jax.ShapeDtypeStruct(shape, jnp.float32,
-                                    vma=frozenset(out_vma))
-
-    Tcp, _, Lp = w_c.shape
-    n_dyn = tlat_p.shape[0]
-    grid = (Tcp // block_t,)
-    kern = functools.partial(
-        _pfilter_kernel, n_dyn=n_dyn, C=C, block_t=block_t, tc_eff=tc_eff,
-        masked_tail=Tcp != tc_eff,
-        uniform_rows=uniform_rows, finals_only=finals_only,
-        scan_prec=scan_prec,
-    )
-    nv = jnp.asarray(n_valid, dtype=jnp.int32).reshape(1, 1)
-    const3 = lambda g: (0, 0, 0)
-    out_specs = [
-        pl.BlockSpec((n_dyn, C, Lp), const3, memory_space=pltpu.VMEM),
-    ]
-    out_shape = [_sds((n_dyn, C, Lp))]
-    if not finals_only:
-        out_specs.insert(0, pl.BlockSpec(
-            (block_t, C), lambda g: (g, 0), memory_space=pltpu.VMEM))
-        out_shape.insert(0, _sds((Tcp, C)))
-        out_specs.insert(0, pl.BlockSpec(
-            (block_t, n_dyn, C, Lp), lambda g: (g, 0, 0, 0),
-            memory_space=pltpu.VMEM))
-        out_shape.insert(0, _sds((Tcp, n_dyn, C, Lp)))
-    out = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda g: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((block_t, C, Lp), lambda g: (g, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_dyn, Lp, Lp), const3, memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_dyn, n_dyn), lambda g: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((n_dyn, C, Lp), const3, memory_space=pltpu.VMEM),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=[pltpu.VMEM((n_dyn, C, Lp), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=_interpret(),
-    )(nv, w_c, tlat_p, tdyn, ins)
-    if finals_only:
-        return None, None, out[0]
-    return out[0], out[1], out[2]
-
-
-# ---------------------------------------------------------------------------
-# backward (acausal smoother) pass kernel
-# ---------------------------------------------------------------------------
-
-
-def _psmooth_kernel(nv_ref, post_ref, tlat_ref, tlatT_ref, tdyn_ref,
-                    ins_ref, *refs,
-                    n_dyn, C, block_t, tc_eff, n_blocks,
-                    masked_tail, uniform_rows, marginal, finals_only,
-                    want_acc=True, scan_prec="highest"):
-    if finals_only:
-        final_ref, carry_ref, prior_ref = refs
-        out_ref = dynm_ref = acc_ref = r_ref = acc_scr = None
-    elif marginal and not want_acc:
-        # marginal mode without the pairwise joint (fused mid-EM
-        # iterations discard it): skip the ratio scratch and the
-        # per-block (Lp, bt*C) @ (bt*C, Lp) accumulator epilogue —
-        # ~2*n_dyn^2*T*Lp^2 FLOPs of the backward emit pass
-        (out_ref, dynm_ref, final_ref, carry_ref, prior_ref) = refs
-        acc_ref = r_ref = acc_scr = None
-    elif marginal:
-        # memory-constrained mode: smoother ratios stay in a VMEM scratch
-        # and fold into the on-chip joint accumulator per block
-        (out_ref, dynm_ref, acc_ref, final_ref,
-         carry_ref, prior_ref, r_ref, acc_scr) = refs
-    else:
-        # full mode (moderate T): ratios go to HBM; acc computed outside
-        (out_ref, r_ref, final_ref, carry_ref, prior_ref) = refs
-        dynm_ref = acc_ref = acc_scr = None
-    g = pl.program_id(0)  # grid reversed via index maps: block n_blocks-1-g
-
-    @pl.when(g == 0)
-    def _():
-        carry_ref[:] = ins_ref[:]
-        if acc_scr is not None:
-            acc_scr[:] = jnp.zeros_like(acc_scr)
-
-    # weight splits are loop-invariant: hoist them out of the step loop
-    tlat_hilo = [
-        _split_bf16(tlat_ref[d])
-        if scan_prec != "highest" and not uniform_rows[d] else None
-        for d in range(n_dyn)
-    ]
-    tlatT_hilo = [
-        _split_bf16(tlatT_ref[e])
-        if scan_prec != "highest" and not uniform_rows[e] else None
-        for e in range(n_dyn)
-    ]
-
-    # block prologue: priors for every row in the block, one batched matmul
-    # per dynamics channel (prior_{t+1} = push(post_t), same-row indexing —
-    # mirrors hmm._backward_filterstore_chunk's trans.push_batch)
-    for d in range(n_dyn):
-        q_d = tdyn_ref[0, d] * post_ref[:, 0]
-        for p_ in range(1, n_dyn):
-            q_d = q_d + tdyn_ref[p_, d] * post_ref[:, p_]
-        if uniform_rows[d]:
-            prior_ref[:, d] = (
-                jnp.sum(q_d, axis=2, keepdims=True) * tlat_ref[d, 0:1, :]
-            )
-        else:
-            prior_ref[:, d] = _scan_dot(
-                q_d.reshape(block_t * C, q_d.shape[-1]), tlat_ref[d],
-                tlat_hilo[d], scan_prec,
-            ).reshape(q_d.shape)
-
-    chunk_off = jax.lax.broadcasted_iota(jnp.int32, (C, 1), 0) * tc_eff
-
-    def body(i, _):
-        t = block_t - 1 - i
-        tau = (n_blocks - 1 - g) * block_t + t
-        p_filt = post_ref[pl.ds(t, 1)][0]    # (n_dyn, C, Lp)
-        p_prior = prior_ref[pl.ds(t, 1)][0]  # prior_{t+1}
-        gidx = chunk_off + tau
-        # recursion domain is t in [0, T-2]; row T-1 stores the carry
-        # (= post[T-1] via the fixed boundary input), padding rows store
-        # the carry passthrough and are sliced off outside
-        valid = gidx < (nv_ref[0, 0] - 1)
-        if masked_tail:  # Tcp > tc_eff: padding rows are hard no-ops
-            valid = jnp.logical_and(valid, tau < tc_eff)
-        rs = []
-        for e in range(n_dyn):
-            pr = p_prior[e]
-            safe = jnp.where(pr > 0, pr, 1.0)
-            r_e = jnp.where(pr > 0, carry_ref[e] / safe, 0.0)
-            # invalid rows contribute nothing to the joint accumulation
-            rs.append(jnp.where(valid, r_e, 0.0))
-        # pull: s_e = Tlat[e] @ r_e (row-vector matmul vs the transpose)
-        ss = []
-        for e in range(n_dyn):
-            if uniform_rows[e]:
-                ss.append(
-                    jnp.sum(rs[e], axis=1, keepdims=True)
-                    * tlatT_ref[e, 0:1, :]
-                )
-            else:
-                ss.append(
-                    _scan_dot(rs[e], tlatT_ref[e], tlatT_hilo[e], scan_prec)
-                )
-        norm = None
-        smooth_rows = []
-        for d in range(n_dyn):
-            pull_d = tdyn_ref[d, 0] * ss[0]
-            for e in range(1, n_dyn):
-                pull_d = pull_d + tdyn_ref[d, e] * ss[e]
-            sm_d = p_filt[d] * pull_d
-            smooth_rows.append(sm_d)
-            nd_ = jnp.sum(sm_d, axis=1, keepdims=True)
-            norm = nd_ if norm is None else norm + nd_
-        inv = 1.0 / jnp.maximum(norm, 1e-38)
-
-        for d in range(n_dyn):
-            new_d = jnp.where(valid, smooth_rows[d] * inv, carry_ref[d])
-            carry_ref[d] = new_d
-            if not finals_only:
-                if r_ref is not None:
-                    r_ref[pl.ds(t, 1), d] = rs[d][None]
-                if marginal:
-                    dynm_ref[pl.ds(t, 1), d] = jnp.sum(new_d, axis=1)[None]
-                else:
-                    out_ref[pl.ds(t, 1), d] = new_d[None]
-        if marginal and not finals_only:
-            lat = carry_ref[0]
-            for d in range(1, n_dyn):
-                lat = lat + carry_ref[d]
-            out_ref[pl.ds(t, 1)] = lat[None]
-        return 0
-
-    jax.lax.fori_loop(0, block_t, body, 0)
-    final_ref[:] = carry_ref[:]
-
-    if acc_scr is not None:
-        # block epilogue (marginal mode): fold this block into the on-chip
-        # pairwise-joint accumulator: acc[d, e] += post[:, d]^T @ r[:, e]
-        # over the block's (bt * C) rows — the (T, n_dyn, C, Lp)
-        # smoother-ratio array never exists in HBM
-        Lp = post_ref.shape[-1]
-        for d in range(n_dyn):
-            fm = post_ref[:, d].reshape(block_t * C, Lp)
-            for e in range(n_dyn):
-                rm = r_ref[:, e].reshape(block_t * C, Lp)
-                prod = jax.lax.dot_general(
-                    fm, rm, (((0,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=HIGHEST,
-                )
-                acc_scr[d, e] += prod
-        acc_ref[:] = acc_scr[:]
-
-
-def _psmooth_pass(post_c, tlat_p, tlatT_p, tdyn, ins, *, C, block_t, tc_eff,
-                  n_valid, uniform_rows, marginal, finals_only,
-                  want_acc=True, scan_prec="highest", out_vma=None):
-    if _interpret():  # off-TPU: the pure-JAX scan reference
-        return _psmooth_pass_ref(
-            post_c, tlat_p, tlatT_p, tdyn, ins, C=C, block_t=block_t,
-            tc_eff=tc_eff, n_valid=n_valid, uniform_rows=uniform_rows,
-            marginal=marginal, finals_only=finals_only, want_acc=want_acc,
-        )
-
-    def _sds(shape):
-        if out_vma is None:
-            return jax.ShapeDtypeStruct(shape, jnp.float32)
-        return jax.ShapeDtypeStruct(shape, jnp.float32,
-                                    vma=frozenset(out_vma))
-
-    Tcp, n_dyn, _, Lp = post_c.shape
-    n_blocks = Tcp // block_t
-    rev4 = lambda g: (n_blocks - 1 - g, 0, 0, 0)
-    rev3 = lambda g: (n_blocks - 1 - g, 0, 0)
-    const3 = lambda g: (0, 0, 0)
-    const4 = lambda g: (0, 0, 0, 0)
-    kern = functools.partial(
-        _psmooth_kernel, n_dyn=n_dyn, C=C, block_t=block_t, tc_eff=tc_eff,
-        n_blocks=n_blocks, masked_tail=Tcp != tc_eff,
-        uniform_rows=uniform_rows, marginal=marginal,
-        finals_only=finals_only, want_acc=want_acc, scan_prec=scan_prec,
-    )
-    nv = jnp.asarray(n_valid, dtype=jnp.int32).reshape(1, 1)
-    final_spec = pl.BlockSpec((n_dyn, C, Lp), const3,
-                              memory_space=pltpu.VMEM)
-    final_shape = _sds((n_dyn, C, Lp))
-    big_spec = pl.BlockSpec((block_t, n_dyn, C, Lp), rev4,
-                            memory_space=pltpu.VMEM)
-    big_shape = _sds((Tcp, n_dyn, C, Lp))
-    scratch = [pltpu.VMEM((n_dyn, C, Lp), jnp.float32),
-               pltpu.VMEM((block_t, n_dyn, C, Lp), jnp.float32)]
-    if finals_only:
-        out_specs, out_shape = [final_spec], [final_shape]
-    elif marginal and not want_acc:
-        out_specs = [
-            pl.BlockSpec((block_t, C, Lp), rev3, memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_t, n_dyn, C), rev3,
-                         memory_space=pltpu.VMEM),
-            final_spec,
-        ]
-        out_shape = [
-            jax.ShapeDtypeStruct((Tcp, C, Lp), jnp.float32),
-            jax.ShapeDtypeStruct((Tcp, n_dyn, C), jnp.float32),
-            final_shape,
-        ]
-    elif marginal:
-        acc_spec = pl.BlockSpec((n_dyn, n_dyn, Lp, Lp), const4,
-                                memory_space=pltpu.VMEM)
-        acc_shape = _sds((n_dyn, n_dyn, Lp, Lp))
-        out_specs = [
-            pl.BlockSpec((block_t, C, Lp), rev3, memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_t, n_dyn, C), rev3,
-                         memory_space=pltpu.VMEM),
-            acc_spec, final_spec,
-        ]
-        out_shape = [
-            jax.ShapeDtypeStruct((Tcp, C, Lp), jnp.float32),
-            jax.ShapeDtypeStruct((Tcp, n_dyn, C), jnp.float32),
-            acc_shape, final_shape,
-        ]
-        scratch = scratch + [
-            pltpu.VMEM((block_t, n_dyn, C, Lp), jnp.float32),
-            pltpu.VMEM((n_dyn, n_dyn, Lp, Lp), jnp.float32),
-        ]
-    else:
-        # full mode: smoother + r both stream to HBM, acc computed outside
-        out_specs = [big_spec, big_spec, final_spec]
-        out_shape = [big_shape, big_shape, final_shape]
-    return pl.pallas_call(
-        kern,
-        grid=(n_blocks,),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda g: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((block_t, n_dyn, C, Lp), rev4,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_dyn, Lp, Lp), const3, memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_dyn, Lp, Lp), const3, memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_dyn, n_dyn), lambda g: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((n_dyn, C, Lp), const3, memory_space=pltpu.VMEM),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=_interpret(),
-    )(nv, post_c, tlat_p, tlatT_p, tdyn, ins)
-
-
-# ---------------------------------------------------------------------------
 # fixed-point drivers
 # ---------------------------------------------------------------------------
 
 
 def _chunk_to_flat(x_c, tc_eff, T):
-    """(Tcp, ..., C, Lp) chunk layout -> (T, ..., Lp) global time order."""
-    # (Tcp, ..., C, Lp) -> (C, Tcp, ..., Lp)
+    """(tc_eff, ..., C, L) chunk layout -> (T, ..., L) global time order."""
+    # (tc_eff, ..., C, L) -> (C, tc_eff, ..., L)
     perm = (x_c.ndim - 2, 0) + tuple(range(1, x_c.ndim - 2)) + (x_c.ndim - 1,)
     x = jnp.transpose(x_c, perm)[:, :tc_eff]
     return x.reshape((-1,) + x.shape[2:])[:T]
@@ -729,62 +194,39 @@ def _chunk_to_flat(x_c, tc_eff, T):
 
 @functools.partial(
     jax.jit,
-    static_argnames=["C", "block_t", "block_t_bwd", "tc_eff", "T",
-                     "uniform_rows", "marginal", "want_post", "max_passes",
-                     "tol", "fast", "want_carry", "has_ws", "want_acc",
-                     "scan_prec"],
-    donate_argnums=(0,),  # ll (2 GB at north-star) — returned when want_post
+    static_argnames=["C", "tc_eff", "T", "marginal", "want_post",
+                     "max_passes", "tol", "fast", "want_carry", "has_ws",
+                     "want_acc"],
+    donate_argnums=(0,),  # ll — returned when want_post
 )
 def _smooth_parallel_jit(ll, tlat, tdyn, p_init, likelihood_scale,
                          fwd_ws, bwd_ws, ws_pred, ws_valid, *,
-                         C, block_t, block_t_bwd, tc_eff, T, uniform_rows,
-                         marginal, want_post, max_passes, tol, fast,
-                         want_carry, has_ws, want_acc=True,
-                         scan_prec="highest"):
+                         C, tc_eff, T, marginal, want_post, max_passes, tol,
+                         fast, want_carry, has_ws, want_acc=True):
     n_dyn, L = tlat.shape[0], tlat.shape[-1]
-    Lp = _round_up(L, LANE)
-    Tcp = _round_up(tc_eff, max(block_t, block_t_bwd))
 
     # ---- likelihood weights in chunk layout ----
     m = jnp.max(ll, axis=1)  # (T,)
     w = jnp.exp(likelihood_scale * (ll - m[:, None]))
-    w_flat = jnp.zeros((C * tc_eff, Lp), dtype=jnp.float32)
-    w_flat = w_flat.at[:T, :L].set(w)
-    w_c = jnp.zeros((Tcp, C, Lp), dtype=jnp.float32)
-    w_c = w_c.at[:tc_eff].set(
-        jnp.transpose(w_flat.reshape(C, tc_eff, Lp), (1, 0, 2))
-    )
-
-    tlat_p = jnp.zeros((n_dyn, Lp, Lp), dtype=jnp.float32)
-    tlat_p = tlat_p.at[:, :L, :L].set(tlat)
-    tlatT_p = jnp.zeros((n_dyn, Lp, Lp), dtype=jnp.float32)
-    tlatT_p = tlatT_p.at[:, :L, :L].set(jnp.swapaxes(tlat, -1, -2))
+    w_flat = jnp.zeros((C * tc_eff, L), dtype=jnp.float32).at[:T].set(w)
+    w_c = jnp.transpose(w_flat.reshape(C, tc_eff, L), (1, 0, 2))
     tdyn = tdyn.astype(jnp.float32)
 
     # ---- forward fixed point (finals-only loop + one emitting pass) ----
-    init_p = jnp.zeros((n_dyn, Lp), dtype=jnp.float32).at[:, :L].set(p_init)
-    uniform_p = jnp.zeros((n_dyn, Lp), dtype=jnp.float32).at[:, :L].set(
-        1.0 / (n_dyn * L)
-    )
+    uniform = jnp.full((n_dyn, L), 1.0 / (n_dyn * L), dtype=jnp.float32)
     ins0 = jnp.broadcast_to(
-        uniform_p[:, None, :], (n_dyn, C, Lp)
-    ).at[:, 0].set(init_p)
+        uniform[:, None, :], (n_dyn, C, L)
+    ).at[:, 0].set(p_init)
     # warm start (has_ws static, ws_valid a traced bool): seed the boundary
     # carries from a previous converged solve — e.g. the prior EM
     # iteration's, where the tuning (hence the carries) moved only
     # slightly.  Chunk 0's input stays the exact initial carry, and the
     # convergence certificate (delta <= tol) is enforced regardless of the
     # seed, so exactness is unaffected; only the pass count changes.
-    # STATICALLY absent when no seed is supplied: standalone strict solves
-    # must compile to the round-2 graph bit-for-bit (see the memory notes
-    # below).
     if has_ws:
-        ins0 = jnp.where(ws_valid, fwd_ws, ins0).at[:, 0].set(init_p)
+        ins0 = jnp.where(ws_valid, fwd_ws, ins0).at[:, 0].set(p_init)
 
-    fwd = functools.partial(
-        _pfilter_pass, C=C, block_t=block_t, tc_eff=tc_eff, n_valid=T,
-        uniform_rows=uniform_rows, scan_prec=scan_prec,
-    )
+    fwd = functools.partial(_pfilter_pass, tc_eff=tc_eff, n_valid=T)
 
     # ``fast`` (fused-EM path): exit on the PREDICTED RESIDUAL instead of
     # the raw movement.  The fixed point contracts by a factor lam per
@@ -793,14 +235,12 @@ def _smooth_parallel_jit(ll, tlat, tdyn, p_init, likelihood_scale,
     # carries by delta is ~lam*delta, so once lam is known from the
     # PREVIOUS solve (its emit pass's measured residual / its measured
     # drift) the loop can stop after ONE pass where the raw-movement test
-    # needed two (movement ~ drift ~ 1e-2/iter even late in EM, while
-    # lam ~ 1e-6 at typical mixing).  The entry test compares 4x the
-    # previous drift against tol: a seed already within tol/4 skips every
-    # finals pass and the emit runs straight from it.  Every fast solve is
-    # certified post-hoc: the emit pass's own finals measure the ACTUAL
-    # residual |F(ins_used)-ins_used| (diag[4:6]), bulk-checked by the
-    # fit_em driver.  Strict mode keeps the round-2 raw-movement test and
-    # peeled first pass exactly.
+    # needed two.  The entry test compares 4x the previous drift against
+    # tol: a seed already within tol/4 skips every finals pass and the emit
+    # runs straight from it.  Every fast solve is certified post-hoc: the
+    # emit pass's own finals measure the ACTUAL residual
+    # |F(ins_used)-ins_used| (diag[4:6]), bulk-checked by the fit_em
+    # driver.  Strict mode keeps the raw-movement test.
     if fast and has_ws:
         lam_f = jnp.where(
             ws_valid,
@@ -815,28 +255,17 @@ def _smooth_parallel_jit(ll, tlat, tdyn, p_init, likelihood_scale,
 
     def fwd_body(state):
         ins, _delta, k = state
-        _, _, fin = fwd(w_c, tlat_p, tdyn, ins, finals_only=True)
+        _, _, fin = fwd(w_c, tlat, tdyn, ins, finals_only=True)
         new_ins = jnp.concatenate([ins[:, :1], fin[:, :-1]], axis=1)
         delta = jnp.max(jnp.abs(new_ins - ins))
         return new_ins, delta, k + 1
 
-    if fast and has_ws:
-        def fwd_cond(state):
-            _, delta, k = state
-            return jnp.logical_and(delta * lam_f > tol, k < max_passes)
-    else:
-        def fwd_cond(state):
-            _, delta, k = state
-            return jnp.logical_and(delta > tol, k < max_passes)
+    def fwd_cond(state):
+        _, delta, k = state
+        return jnp.logical_and(delta * lam_f > tol, k < max_passes)
 
-    # NOTE: the loop state stays EXACTLY (ins, delta, k) — the drift
-    # predictor is derived outside the loop from (seed, converged carries).
-    # Adding a 4th scalar element to this carry changed XLA's wide-loop
-    # buffer sinking and cost +4 GB of temp arena at north-star.  Likewise
-    # the strict path keeps the round-2 peeled-first-pass structure (one
-    # body inlined before the loop) — part of the proven-6.17-GB graph;
-    # the warm-started variant cannot peel (the seed may already satisfy
-    # the predicted-drift exit test, i.e. zero passes).
+    # strict cold solves always run at least one finals pass; a warm or
+    # fast solve may need none
     if has_ws or fast:
         fstate = (ins0, pred_f, jnp.array(0, jnp.int32))
     else:
@@ -847,34 +276,26 @@ def _smooth_parallel_jit(ll, tlat, tdyn, p_init, likelihood_scale,
         fwd_cond, fwd_body, fstate
     )
     # the emit pass stores the per-step normalizers (the exact values used
-    # in the recursion) alongside the posteriors — no reconstruction sweep
-    post_c, svals, fin_emit = fwd(
-        w_c, tlat_p, tdyn, ins_used, finals_only=False
-    )
+    # in the recursion) alongside the posteriors
+    post_c, svals, fin_emit = fwd(w_c, tlat, tdyn, ins_used,
+                                  finals_only=False)
     ratios = (
-        jnp.log(jnp.transpose(svals)[:, :tc_eff].reshape(-1)[:T])
+        jnp.log(jnp.transpose(svals).reshape(-1)[:T])
         + likelihood_scale * m
     )
     log_marginal = jnp.sum(ratios)
 
     c_star = (T - 1) // tc_eff
     r_star = (T - 1) % tc_eff
-    # MEMORY DISCIPLINE — two statically-gated tails.  XLA's TPU scheduler
-    # and buffer packer are chaotically sensitive to which values survive
-    # to the return here: exporting ANY backward-phase (n_dyn, C, Lp)
-    # tensor from this program — or even computing-but-not-exporting some
-    # combinations — was measured to inflate the temp arena by +2 to +4 GB
-    # at north-star shapes (T=1e6, L=500), which OOMs the chip.  So:
-    #  * want_carry=False (standalone strict solves: host EM iterations,
-    #    decode) reproduces the round-2 graph EXACTLY — post_T1 sliced
-    #    from post_c, the original 3-tuple phase barrier, no carry or
-    #    certificate computations.  Measured 6.17 GB temp at north-star.
-    #  * want_carry=True (inside the fused EM scan, where the carries ride
-    #    the scan state rather than program outputs) computes the fresh
-    #    boundary carries, drift predictors and post-hoc certificates,
-    #    and reads post_T1 from the emit finals (fin_emit[:, c_star] ==
-    #    post_c[r_star, :, c_star]: rows past n_valid are carry no-ops)
-    #    so no late post_c slice pins the 4 GB filter store.
+    # Two statically-gated tails.  want_carry=False (standalone strict
+    # solves: host EM iterations, decode) exports no boundary carries;
+    # want_carry=True (inside the fused EM scan, where the carries ride
+    # the scan state) computes the fresh boundary carries, drift
+    # predictors and post-hoc certificates, and reads post_T1 from the
+    # emit finals (fin_emit[:, c_star] == post_c[r_star, :, c_star]: rows
+    # past n_valid are carry no-ops).  The optimization barriers end the
+    # forward phase before the backward phase allocates, so the weights
+    # are dead while the smoother outputs are live.
     if want_carry:
         emit_ins_f = jnp.concatenate(
             [ins_used[:, :1], fin_emit[:, :-1]], axis=1
@@ -886,24 +307,17 @@ def _smooth_parallel_jit(ll, tlat, tdyn, p_init, likelihood_scale,
         # skipped-loop fast solve (fwd_passes == 0) this equals the emit
         # pass's own residual, i.e. the true one-pass movement.
         fwd_drift = jnp.max(jnp.abs(emit_ins_f - ins0))
-        post_T1 = fin_emit[:, c_star, :]  # (n_dyn, Lp), exact
-        # the phase barrier (see below) additionally pins the small
-        # post-emit values here so they don't keep forward-emit buffers
-        # alive through the backward phase
+        post_T1 = fin_emit[:, c_star, :]  # (n_dyn, L), exact
         (post_c, ratios, log_marginal, post_T1, emit_ins_f, emit_delta_f,
          fwd_drift) = lax.optimization_barrier(
             (post_c, ratios, log_marginal, post_T1, emit_ins_f,
              emit_delta_f, fwd_drift)
         )
     else:
-        # peak-memory control (not semantics): force the normalizer
-        # reconstruction — the last consumer of the 2 GB w_c — to complete
-        # before the backward phase starts, so w_c's buffer is dead while
-        # the smoother outputs are live
         post_c, ratios, log_marginal = lax.optimization_barrier(
             (post_c, ratios, log_marginal)
         )
-        post_T1 = post_c[r_star, :, c_star, :]  # (n_dyn, Lp), exact
+        post_T1 = post_c[r_star, :, c_star, :]  # (n_dyn, L), exact
 
     # ---- backward fixed point (finals-only loop + one emitting pass) ----
     guess = jnp.concatenate(
@@ -914,8 +328,7 @@ def _smooth_parallel_jit(ll, tlat, tdyn, p_init, likelihood_scale,
     guess = guess.at[:, c_star:, :].set(post_T1[:, None, :])
 
     bwd = functools.partial(
-        _psmooth_pass, C=C, tc_eff=tc_eff, n_valid=T,
-        uniform_rows=uniform_rows, marginal=marginal, scan_prec=scan_prec,
+        _psmooth_pass, tc_eff=tc_eff, n_valid=T, marginal=marginal,
     )
 
     def bwd_shift(fin):
@@ -939,23 +352,15 @@ def _smooth_parallel_jit(ll, tlat, tdyn, p_init, likelihood_scale,
 
     def bwd_body(state):
         ins, _delta, k = state
-        (fin,) = bwd(post_c, tlat_p, tlatT_p, tdyn, ins,
-                     block_t=block_t, finals_only=True)
+        (fin,) = bwd(post_c, tlat, tdyn, ins, finals_only=True)
         new_ins = bwd_shift(fin)
         delta = jnp.max(jnp.abs(new_ins - ins))
         return new_ins, delta, k + 1
 
-    if fast and has_ws:
-        def bwd_cond(state):
-            _, delta, k = state
-            return jnp.logical_and(delta * lam_b > tol, k < max_passes)
-    else:
-        def bwd_cond(state):
-            _, delta, k = state
-            return jnp.logical_and(delta > tol, k < max_passes)
+    def bwd_cond(state):
+        _, delta, k = state
+        return jnp.logical_and(delta * lam_b > tol, k < max_passes)
 
-    # loop state stays (ins, delta, k), strict path peels the first pass —
-    # see the forward loop's note
     if has_ws or fast:
         bstate = (guess, pred_b, jnp.array(0, jnp.int32))
     else:
@@ -966,8 +371,8 @@ def _smooth_parallel_jit(ll, tlat, tdyn, p_init, likelihood_scale,
     ins_bwd, bwd_delta, bwd_passes = lax.while_loop(
         bwd_cond, bwd_body, bstate
     )
-    emit = bwd(post_c, tlat_p, tlatT_p, tdyn, ins_bwd,
-               block_t=block_t_bwd, finals_only=False, want_acc=want_acc)
+    emit = bwd(post_c, tlat, tdyn, ins_bwd, finals_only=False,
+               want_acc=want_acc)
     if marginal and not want_acc:
         out_c, dynm_c, fin_b = emit
         acc_raw = None
@@ -976,21 +381,16 @@ def _smooth_parallel_jit(ll, tlat, tdyn, p_init, likelihood_scale,
     else:
         out_c, r_c, fin_b = emit
         dynm_c = None
-        # moderate-T mode: the pairwise-joint contraction over (t, c) runs
-        # outside the kernel (invalid rows carry r == 0)
+        # the pairwise-joint contraction over (t, c) (invalid rows carry
+        # r == 0)
         acc_raw = (
-            jnp.einsum("tdci,tecj->deij", post_c, r_c, precision=PRECISION)
+            jnp.einsum("tdci,tecj->deij", post_c, r_c, precision=HIGHEST)
             if want_acc else None
         )
     if want_carry:
         emit_ins_b = bwd_shift(fin_b)
         emit_delta_b = jnp.max(jnp.abs(emit_ins_b - ins_bwd))
         bwd_drift = jnp.max(jnp.abs(emit_ins_b - guess))
-
-        # peak-memory control: same as the mid barrier — bind the output
-        # flattening to the (small) carry/certificate computations so
-        # fin_b / ins_bwd die with the backward emit instead of living to
-        # the return (None entries are static pytree leaves: fine)
         (out_c, dynm_c, acc_raw, emit_ins_b, emit_delta_b,
          bwd_drift) = lax.optimization_barrier(
             (out_c, dynm_c, acc_raw, emit_ins_b, emit_delta_b,
@@ -998,37 +398,23 @@ def _smooth_parallel_jit(ll, tlat, tdyn, p_init, likelihood_scale,
         )
 
     acc = (
-        acc_raw[:, :, :L, :L] * tdyn[:, :, None, None]
-        * tlat[None, :, :, :]
+        acc_raw * tdyn[:, :, None, None] * tlat[None, :, :, :]
     ) if acc_raw is not None else None
 
     # ---- reassemble global-time outputs ----
     if marginal:
-        smooth_lat = _chunk_to_flat(out_c, tc_eff, T)[:, :L]  # (T, L)
+        smooth_lat = _chunk_to_flat(out_c, tc_eff, T)  # (T, L)
         dynm = _chunk_to_flat(dynm_c[..., None], tc_eff, T)[:, :, 0]
         smooth_out = (smooth_lat, dynm)
     else:
-        smooth_out = _chunk_to_flat(out_c, tc_eff, T)[:, :, :L]
-    post_out = (
-        _chunk_to_flat(post_c, tc_eff, T)[:, :, :L] if want_post else None
-    )
+        smooth_out = _chunk_to_flat(out_c, tc_eff, T)
+    post_out = _chunk_to_flat(post_c, tc_eff, T) if want_post else None
     ll_out = ll if want_post else None  # pass the donated buffer back out
-    # diag is a 4-tuple on the strict standalone path (identical to the
-    # round-2 program outputs) and grows the emit-pass post-hoc residuals
-    # only when the carries are requested
+    # diag grows the emit-pass post-hoc residuals only when the carries
+    # are requested
     diag = (fwd_passes, bwd_passes, fwd_delta, bwd_delta)
     if want_carry:
         diag = diag + (emit_delta_f, emit_delta_b)
-    # Freshest boundary carries + measured drift, returned so the next
-    # same-shape solve (e.g. the next EM iteration) can warm-start its
-    # fixed points and predict whether any finals-only pass is needed.
-    # STATIC-GATED: exporting any backward-phase (n_dyn, C, Lp) tensor as a
-    # program output inflates XLA's temp arena by the full 4 GB post_c
-    # allocation at north-star shapes (measured; scalar outputs are free,
-    # and the same values as lax.scan carries inside the fused EM program
-    # are also free) — so standalone strict solves, which run at
-    # near-HBM-capacity scales and never consume the carries, must not
-    # pay for them.
     # pred vector = [drift_f, drift_b, emit_resid_f, emit_resid_b]: the
     # next same-shape fast solve derives its contraction estimate
     # lam = resid/drift and its entry test from these
@@ -1043,23 +429,23 @@ def _smooth_parallel_jit(ll, tlat, tdyn, p_init, likelihood_scale,
 
 def carry_spec(T, L, n_dyn, config=None):
     """Shape of the warm-start boundary-carry arrays for this problem:
-    (n_dyn, C, Lp), or None when the parallel engine does not apply."""
+    (n_dyn, C, L), or None when the parallel engine does not apply."""
     if config is None:
         config = choose_parallel_config(T, L, n_dyn)
     if config is None:
         return None
-    return (max(1, n_dyn), config[0], _round_up(L, LANE))
+    return (max(1, n_dyn), config, L)
 
 
 def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
-                    uniform_rows, marginal=False, want_post=False,
-                    config=None, max_passes=None, tol=1e-6,
-                    warm_start=None, fast=False, want_carry=False,
-                    want_acc=True):
+                    marginal=False, want_post=False, config=None,
+                    max_passes=None, tol=STRICT_TOL, warm_start=None,
+                    fast=False, want_carry=False, want_acc=True):
     """Fixed-point parallel-in-time forward-backward smoother.
 
     ll: (T, L) log-likelihood; tlat: (n_dyn, L, L); tdyn: (n_dyn, n_dyn);
-    p_init: (n_dyn, L) probability-space initial carry.
+    p_init: (n_dyn, L) probability-space initial carry; ``config``: the
+    chunk count C (default :func:`choose_parallel_config`).
 
     Returns (smooth, log_marginal, post, ratios, acc, ll, diag, carries) in
     PROBABILITY space, where smooth is (T, n_dyn, L) or the (latent_marg
@@ -1069,13 +455,10 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
     (fwd_passes, bwd_passes, fwd_delta, bwd_delta) — extended with
     (emit_delta_f, emit_delta_b), the emit passes' post-hoc residuals, when
     ``want_carry`` — and carries = (fwd, bwd, pred(4,)) — the
-    freshest boundary carries ((n_dyn, C, Lp) each, see :func:`carry_spec`)
+    freshest boundary carries ((n_dyn, C, L) each, see :func:`carry_spec`)
     plus pred = [drift_f, drift_b, emit_resid_f, emit_resid_b], the
     measured per-direction fixed-point movement and emit residual — when
-    ``want_carry``, else None (request them ONLY from inside a larger
-    program, e.g. the fused EM scan: as standalone program outputs they
-    cost +4 GB of XLA temp arena at north-star shapes, see the gate's
-    comment in :func:`_smooth_parallel_jit`).
+    ``want_carry``, else None.
 
     ``warm_start``: optional ``(fwd, bwd, pred, valid)`` — the ``carries``
     of a previous same-shape solve (e.g. the prior EM iteration) plus a
@@ -1089,20 +472,16 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
     fast solve is certified post-hoc by the emit pass's own residual
     (diag[4:6]), which the caller must check in bulk.
 
-    ``want_acc=False`` returns ``acc=None`` and skips its computation —
-    in marginal mode this removes the backward emit kernel's per-block
-    pairwise-joint epilogue (~2*n_dyn^2*T*Lp^2 FLOPs), the dominant waste
-    when the caller (e.g. the fused mid-EM iterations) discards the joint.
-    NOTE: the caller's ``ll`` buffer is DONATED."""
+    ``want_acc=False`` returns ``acc=None`` and skips the pairwise-joint
+    contraction (~2*n_dyn^2*T*L^2 FLOPs), which the fused mid-EM iterations
+    discard.  NOTE: the caller's ``ll`` buffer is DONATED."""
     T, L = ll.shape
     n_dyn = tlat.shape[0]
-    if config is None:
-        config = choose_parallel_config(T, L, n_dyn)
-    if config is None:
+    C = choose_parallel_config(T, L, n_dyn) if config is None else config
+    if C is None:
         raise ValueError(
             f"problem too small for the parallel engine (T={T})"
         )
-    C, bt_f, bt_b = config
     tc_eff = -(-T // C)
     if max_passes is None:
         max_passes = C
@@ -1126,9 +505,8 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
         jnp.asarray(bwd_ws, dtype=jnp.float32),
         jnp.asarray(ws_pred, dtype=jnp.float32),
         ws_valid,
-        C=C, block_t=bt_f, block_t_bwd=bt_b, tc_eff=tc_eff, T=T,
-        uniform_rows=tuple(uniform_rows), marginal=marginal,
+        C=C, tc_eff=tc_eff, T=T, marginal=marginal,
         want_post=want_post, max_passes=int(max_passes), tol=float(tol),
         fast=bool(fast), want_carry=bool(want_carry), has_ws=has_ws,
-        want_acc=bool(want_acc), scan_prec=_SCAN_PRECISION,
+        want_acc=bool(want_acc),
     )

@@ -1,29 +1,27 @@
-"""Pallas TPU kernels for the forward/backward HMM scans.
+"""Sequential HMM filter/smoother as Pallas kernels through Triton.
 
-The XLA ``lax.scan`` path costs ~5us/step at L=100 (per-op dispatch overhead
-inside the compiled loop dominates the ~40 KFLOP of real per-step work).
-These kernels process a whole block of timesteps per kernel invocation with
-the transition matrices resident in VMEM, turning the scan into a tight
-in-VMEM ``fori_loop``: one (1, L) @ (L, L) MXU matvec per dynamics state per
-step plus a handful of VPU ops.  Measured per-step latency on a TPU v5e:
-~0.6us at L=100 (128 lanes), ~1.5us at L=500 (512 lanes), f32-exact
-(Precision.HIGHEST dots; Mosaic supports only DEFAULT/HIGHEST, and a manual
-bf16x3 three-pass variant measured ~1.2x faster at ~3e-3 accuracy loss —
-rejected).  The chain is latency-bound on the dependent per-step matvec;
-uniform-row channels (the jump transition) skip their matvec entirely.
+Under ``lax.scan`` every time step of the forward or backward recursion is
+a handful of separately launched GPU kernels around ~40 kFLOP of real work
+at L=100, so the scan is bound by launch latency.  These kernels run the
+whole recursion in ONE program per sequence: the time loop is inside the
+kernel, the carry stays in registers, and the (L, L) latent transition is
+loaded once and held in registers for every step.  Per step the program
+does one (1, L) @ (L, L) vector-matrix product per dynamics channel (a
+broadcast multiply and a reduction; Triton's dot wants at least 16 rows),
+and a uniform-row channel (the jump transition) replaces its product with
+a scalar sum.  The likelihood enters as precomputed max-shifted weights
+``exp(scale * (ll - rowmax))``, so no transcendental sits on the
+sequential path.
 
-Layout: the latent axis is padded to a multiple of 128 (lane width) and the
-time axis to a multiple of the block size.  Padded latent columns carry
-zero transition mass and MASK_NEG log-likelihood, so they hold exactly zero
-posterior; padded time rows have ll == 0, which multiplies the running
-marginal by sum(prior) == 1 (a no-op for the marginal).
-
-TPU grid iterations execute sequentially, so the scan carry lives in VMEM
-scratch across grid steps (forward: left-to-right; backward: right-to-left
-via a reversed index map).
+The transition block lives in registers, so the kernels are built for
+``L <= engine.KERNEL_MAX_L`` only.  Layout: the latent axis is padded to a
+power of two (Triton's block shapes); padded columns carry zero transition
+mass and zero weight, so they hold exactly zero posterior.  The time axis
+is not padded.
 
 Both the joint model (n_dyn=2) and the latent-only model (n_dyn=1, trivial
-dynamics) use the same kernels.
+dynamics) use the same kernels.  ``interpret=True`` runs them with the
+Pallas interpreter (tests on the CPU).
 """
 
 from __future__ import annotations
@@ -32,44 +30,35 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from poor_man_gplvm_tpu.ops.emissions import PRECISION
 
-DEFAULT_BLOCK_T = 256
-LANE = 128
+NUM_WARPS = 8
 
 
-def _detect_uniform_rows(tlat):
-    """Static per-dynamics flags: True when Tlat[d] is CONSTANT (every entry
-    equal, e.g. the jump channel's uniform transition).  Evaluated host-side
-    on concrete matrices; traced inputs fall back to the general path.
-
-    Note the constant-entry requirement: the smoother fast path computes
-    ``sum(r) * TlatT[0, :]``, which equals the true pull ``Tlat @ r`` only
-    when the (identical) rows are themselves constant — identical but
-    non-constant rows (possible with custom kernels) must take the general
-    matvec."""
-    try:
-        arr = np.asarray(tlat)
-    except Exception:
-        return tuple(False for _ in range(tlat.shape[0]))
-    flags = []
-    for d in range(arr.shape[0]):
-        flags.append(bool(np.all(np.abs(arr[d] - arr[d][0, 0]) < 1e-12)))
-    return tuple(flags)
+def _pow2(x):
+    return max(16, 1 << (int(x) - 1).bit_length())
 
 
-def _interpret():
-    # off-TPU (tests on the 8-device CPU mesh) run the kernels interpreted
-    return jax.default_backend() != "tpu"
+def _call(kernel, out_shape, interpret, name):
+    return pl.pallas_call(
+        kernel,
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name=name,
+    )
 
 
-
-def _round_up(x, m):
-    return -(-x // m) * m
+def _pad_lat(x, Lp, axes):
+    pad = [(0, 0)] * x.ndim
+    for a in axes:
+        pad[a] = (0, Lp - x.shape[a])
+    return jnp.pad(x.astype(jnp.float32), pad)
 
 
 # ---------------------------------------------------------------------------
@@ -77,116 +66,66 @@ def _round_up(x, m):
 # ---------------------------------------------------------------------------
 
 
-def _filter_kernel(w_ref, tlat_ref, tdyn_ref, init_ref,
-                   post_ref, prior_ref, carry_ref, *, n_dyn, block_t,
-                   uniform_rows):
-    # the likelihood enters as PRE-COMPUTED max-shifted weights
-    # w = exp(scale * (ll - rowmax)) — hoisting the transcendental out of
-    # the sequential critical path (it is vectorized over T outside)
-    g = pl.program_id(0)
+def _filter_kernel(w_ref, tlat_ref, tdyn_ref, init_ref, post_ref, prior_ref,
+                   *, n_dyn, T, uniform_rows):
+    tdyn = [[tdyn_ref[p, d] for d in range(n_dyn)] for p in range(n_dyn)]
+    # uniform channels keep one row, the others their whole block
+    mats = [tlat_ref[d, 0] if uniform_rows[d] else tlat_ref[d]
+            for d in range(n_dyn)]
 
-    @pl.when(g == 0)
-    def _():
-        carry_ref[:] = init_ref[:]
-
-    def body(t, _):
-        w = w_ref[pl.ds(t, 1), :]  # (1, Lp)
-        # dynamics mix then latent transition, per dynamics state
-        prior_rows = []
+    def body(t, carry):
+        w = w_ref[t]
+        priors = []
         for d in range(n_dyn):
-            q_d = tdyn_ref[0, d] * carry_ref[pl.ds(0, 1), :]
-            for p_ in range(1, n_dyn):
-                q_d = q_d + tdyn_ref[p_, d] * carry_ref[pl.ds(p_, 1), :]
+            q = tdyn[0][d] * carry[0]
+            for p in range(1, n_dyn):
+                q = q + tdyn[p][d] * carry[p]
             if uniform_rows[d]:
-                # uniform latent transition (the jump channel): every row of
-                # Tlat[d] is identical, so the matvec collapses to
-                # sum(q_d) * row — no MXU pass needed
-                prior_rows.append(jnp.sum(q_d) * tlat_ref[d, pl.ds(0, 1), :])
+                priors.append(jnp.sum(q) * mats[d])
             else:
-                prior_rows.append(
-                    jnp.dot(q_d, tlat_ref[d],
-                            preferred_element_type=jnp.float32,
-                            precision=jax.lax.Precision.HIGHEST)
-                )
-        prior = jnp.concatenate(prior_rows, axis=0)  # (n_dyn, Lp)
+                priors.append(jnp.sum(q[:, None] * mats[d], axis=0))
+        us = [pr * w for pr in priors]
+        s = us[0].sum()
+        for u in us[1:]:
+            s = s + u.sum()
+        # guard like the prob engine: all prior mass on zero-weight bins
+        # must degrade gracefully, not NaN-poison the carry
+        inv = 1.0 / jnp.maximum(s, 1e-38)
+        new = tuple(u * inv for u in us)
+        for d in range(n_dyn):
+            post_ref[t, d] = new[d]
+            prior_ref[t, d] = priors[d]
+        return new
 
-        u = prior * w  # broadcast (1, Lp) over dyn rows
-        # guard like the prob engine / parallel kernels: all prior mass on
-        # zero-weight bins (custom kernels with exact zeros + ma_latent)
-        # must degrade gracefully, not NaN-poison the VMEM carry
-        s = jnp.maximum(jnp.sum(u), 1e-38)
-        p_new = u / s
-
-        carry_ref[:] = p_new
-        post_ref[pl.ds(t, 1)] = p_new[None]
-        prior_ref[pl.ds(t, 1)] = prior[None]
-        return 0
-
-    jax.lax.fori_loop(0, block_t, body, 0)
+    init = tuple(init_ref[d] for d in range(n_dyn))
+    jax.lax.fori_loop(0, T, body, init)
 
 
-@functools.partial(jax.jit, static_argnames=["block_t", "uniform_rows"])
+@functools.partial(jax.jit,
+                   static_argnames=["uniform_rows", "interpret"])
 def filter_chunk_pallas(ll, tlat, tdyn, p_init, likelihood_scale,
-                        block_t=DEFAULT_BLOCK_T, uniform_rows=None):
+                        uniform_rows, interpret=False):
     """Causal filter over (T, L) log-likelihoods.
 
     ll: (T, L); tlat: (n_dyn, L, L) row-stochastic; tdyn: (n_dyn, n_dyn);
-    p_init: (n_dyn, L) probability-space carry.
+    p_init: (n_dyn, L) probability-space carry; ``uniform_rows``: static
+    per-channel flags (``hmm._uniform_row_flags``).
     Returns (post (T, n_dyn, L), prior (T, n_dyn, L), ratios (T,)).
     """
     T, L = ll.shape
     n_dyn = tlat.shape[0]
-    Lp = _round_up(L, LANE)
-    Tp = _round_up(max(T, 1), block_t)
-
-    # pre-compute max-shifted likelihood weights (vectorized over T);
-    # padded latent columns get weight 0, padded time rows weight 1
-    # (marginal no-op: sum(prior) == 1)
+    Lp = _pow2(L)
     m = jnp.max(ll, axis=1)
     w = jnp.exp(likelihood_scale * (ll - m[:, None]))
-    # rows T: keep their init value [ones(L), zeros(Lp-L)] — the padded
-    # time rows' marginal no-op weights
-    w_p = jnp.ones((Tp, Lp), dtype=jnp.float32)
-    w_p = w_p.at[:, L:].set(0.0)
-    w_p = w_p.at[:T, :L].set(w)
-    tlat_p = jnp.zeros((n_dyn, Lp, Lp), dtype=jnp.float32)
-    tlat_p = tlat_p.at[:, :L, :L].set(tlat)
-    init_p = jnp.zeros((n_dyn, Lp), dtype=jnp.float32).at[:, :L].set(p_init)
-
-    if uniform_rows is None:
-        uniform_rows = _detect_uniform_rows(tlat)
-    grid = (Tp // block_t,)
-    post, prior = pl.pallas_call(
-        functools.partial(_filter_kernel, n_dyn=n_dyn, block_t=block_t,
-                          uniform_rows=uniform_rows),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((block_t, Lp), lambda g: (g, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_dyn, Lp, Lp), lambda g: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_dyn, n_dyn), lambda g: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((n_dyn, Lp), lambda g: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((block_t, n_dyn, Lp), lambda g: (g, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_t, n_dyn, Lp), lambda g: (g, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((Tp, n_dyn, Lp), jnp.float32),
-            jax.ShapeDtypeStruct((Tp, n_dyn, Lp), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((n_dyn, Lp), jnp.float32)],
-        interpret=_interpret(),
-    )(w_p, tlat_p, tdyn, init_p)
-
-    post, prior = post[:T, :, :L], prior[:T, :, :L]
-    # per-step log marginal ratios recomputed vectorized (Mosaic disallows
-    # dynamic 1-D stores; this batched reduce is ~O(T D L) VPU work)
+    sds = jax.ShapeDtypeStruct((T, n_dyn, Lp), jnp.float32)
+    post, prior = _call(
+        functools.partial(_filter_kernel, n_dyn=n_dyn, T=T,
+                          uniform_rows=tuple(uniform_rows)),
+        [sds, sds], interpret, "hmm_filter",
+    )(_pad_lat(w, Lp, (1,)), _pad_lat(tlat, Lp, (1, 2)),
+      tdyn.astype(jnp.float32), _pad_lat(p_init, Lp, (1,)))
+    post, prior = post[..., :L], prior[..., :L]
+    # per-step log-marginal ratios, recomputed vectorized over T
     s = jnp.einsum("tdl,tl->t", prior, w, precision=PRECISION)
     ratios = jnp.log(s) + likelihood_scale * m
     return post, prior, ratios
@@ -197,126 +136,63 @@ def filter_chunk_pallas(ll, tlat, tdyn, p_init, likelihood_scale,
 # ---------------------------------------------------------------------------
 
 
-def _smoother_kernel(filt_ref, prior_ref, tlat_ref, tdyn_ref, init_ref,
-                     smooth_ref, rout_ref, carry_ref, *, n_dyn, block_t,
-                     uniform_rows, n_valid, n_blocks):
-    g = pl.program_id(0)
+def _smoother_kernel(filt_ref, prior_ref, tlatT_ref, tdyn_ref, init_ref,
+                     smooth_ref, r_ref, *, n_dyn, T, uniform_rows):
+    tdyn = [[tdyn_ref[d, e] for e in range(n_dyn)] for d in range(n_dyn)]
+    # the pull s[e] = Tlat[e] @ r[e] = r[e] @ Tlat[e]^T (tlatT_ref holds
+    # the transposed blocks); a constant channel's pull is sum(r) times
+    # its first transposed row
+    mats = [tlatT_ref[e, 0] if uniform_rows[e] else tlatT_ref[e]
+            for e in range(n_dyn)]
 
-    @pl.when(g == 0)
-    def _():
-        carry_ref[:] = init_ref[:]
+    def body(i, carry):
+        t = T - 1 - i
+        rs, ss = [], []
+        for e in range(n_dyn):
+            pr = prior_ref[t, e]
+            safe = jnp.where(pr > 0, pr, 1.0)
+            r = jnp.where(pr > 0, carry[e] / safe, 0.0)
+            rs.append(r)
+            if uniform_rows[e]:
+                ss.append(jnp.sum(r) * mats[e])
+            else:
+                ss.append(jnp.sum(r[:, None] * mats[e], axis=0))
+        sms = []
+        for d in range(n_dyn):
+            pull = tdyn[d][0] * ss[0]
+            for e in range(1, n_dyn):
+                pull = pull + tdyn[d][e] * ss[e]
+            sms.append(filt_ref[t, d] * pull)
+        norm = sms[0].sum()
+        for sm in sms[1:]:
+            norm = norm + sm.sum()
+        inv = 1.0 / jnp.maximum(norm, 1e-38)
+        new = tuple(sm * inv for sm in sms)
+        for d in range(n_dyn):
+            smooth_ref[t, d] = new[d]
+            r_ref[t, d] = rs[d]
+        return new
 
-    def body(i, _):
-        t = block_t - 1 - i
-        # global time index of this step; the grid is reversed so grid step
-        # g reads block (n_blocks - 1 - g).  Padded tail rows
-        # (t_global >= n_valid) are hard no-ops: the carry must pass through
-        # untouched, because when the carried smoothed posterior contains
-        # exact zeros (masked latent bins) the pull/renormalize step is NOT
-        # an identity even with filt == prior == init.
-        t_global = (n_blocks - 1 - g) * block_t + t
-
-        @pl.when(t_global < n_valid)
-        def _():
-            p_filt = filt_ref[pl.ds(t, 1)][0]  # (n_dyn, Lp)
-            p_prior = prior_ref[pl.ds(t, 1)][0]
-            p_smooth_next = carry_ref[:]
-
-            safe = jnp.where(p_prior > 0, p_prior, 1.0)
-            r = jnp.where(p_prior > 0, p_smooth_next / safe, 0.0)
-
-            # pull: s[e] = Tlat[e] @ r[e]; out[d] = sum_e Tdyn[d,e] * s[e]
-            # (tlat_ref holds the TRANSPOSED latent kernels so this is a
-            # plain row-vector matmul; a uniform channel collapses to
-            # sum * row)
-            s_rows = []
-            for e in range(n_dyn):
-                if uniform_rows[e]:
-                    s_rows.append(
-                        jnp.sum(r[e]) * tlat_ref[e, pl.ds(0, 1), :])
-                else:
-                    s_rows.append(
-                        jnp.dot(r[e][None, :], tlat_ref[e],
-                                preferred_element_type=jnp.float32,
-                                precision=jax.lax.Precision.HIGHEST)
-                    )
-            pull_rows = []
-            for d in range(n_dyn):
-                acc = tdyn_ref[d, 0] * s_rows[0]
-                for e in range(1, n_dyn):
-                    acc = acc + tdyn_ref[d, e] * s_rows[e]
-                pull_rows.append(acc)
-            pull = jnp.concatenate(pull_rows, axis=0)  # (n_dyn, Lp)
-
-            p_smooth = p_filt * pull
-            p_smooth = p_smooth / jnp.maximum(jnp.sum(p_smooth), 1e-38)
-
-            carry_ref[:] = p_smooth
-            smooth_ref[pl.ds(t, 1)] = p_smooth[None]
-            rout_ref[pl.ds(t, 1)] = r[None]
-
-        return 0
-
-    jax.lax.fori_loop(0, block_t, body, 0)
+    init = tuple(init_ref[d] for d in range(n_dyn))
+    jax.lax.fori_loop(0, T, body, init)
 
 
-@functools.partial(jax.jit, static_argnames=["block_t", "uniform_rows"])
+@functools.partial(jax.jit,
+                   static_argnames=["uniform_rows", "interpret"])
 def smoother_chunk_pallas(filt_xs, prior_xs, tlat, tdyn, smooth_init,
-                          block_t=DEFAULT_BLOCK_T, uniform_rows=None):
-    """Backward smoother over (T', n_dyn, L) filter posteriors and +1-shifted
-    priors.  Returns (smooth (T', n_dyn, L), ratios (T', n_dyn, L)).
-
-    Padded tail rows (processed FIRST in reverse order) are skipped entirely
-    inside the kernel (``pl.when(t_global < T)``) so the carry reaches the
-    last real row exactly as ``smooth_init`` — including when the carried
-    posterior contains exact zeros from ``ma_latent`` masks, where a
-    pull/renormalize "identity step" would NOT be a no-op.
-    """
+                          uniform_rows, interpret=False):
+    """Backward smoother over (T', n_dyn, L) filter posteriors and the
+    +1-shifted priors.  Returns (smooth (T', n_dyn, L), ratios (T', n_dyn,
+    L)), ratios being the smoother/prior pull ratios the pairwise joint is
+    accumulated from."""
     T, n_dyn, L = filt_xs.shape
-    Lp = _round_up(L, LANE)
-    Tp = _round_up(max(T, 1), block_t)
-
-    init_p = jnp.zeros((n_dyn, Lp), dtype=jnp.float32).at[:, :L].set(smooth_init)
-    filt_p = jnp.zeros((Tp, n_dyn, Lp), dtype=jnp.float32)
-    filt_p = filt_p.at[:T, :, :L].set(filt_xs)
-    prior_p = jnp.zeros((Tp, n_dyn, Lp), dtype=jnp.float32)
-    prior_p = prior_p.at[:T, :, :L].set(prior_xs)
-    # pre-transpose the latent kernels: the kernel computes Tlat[e] @ r[e]
-    # as a row-vector matmul r @ Tlat[e]^T
-    tlat_p = jnp.zeros((n_dyn, Lp, Lp), dtype=jnp.float32)
-    tlat_p = tlat_p.at[:, :L, :L].set(jnp.swapaxes(tlat, -1, -2))
-
-    if uniform_rows is None:
-        uniform_rows = _detect_uniform_rows(tlat)
-    n_blocks = Tp // block_t
-    grid = (n_blocks,)
-    rev = lambda g: (n_blocks - 1 - g, 0, 0)
-
-    smooth, rout = pl.pallas_call(
-        functools.partial(_smoother_kernel, n_dyn=n_dyn, block_t=block_t,
-                          uniform_rows=uniform_rows, n_valid=T,
-                          n_blocks=n_blocks),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((block_t, n_dyn, Lp), rev, memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_t, n_dyn, Lp), rev, memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_dyn, Lp, Lp), lambda g: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_dyn, n_dyn), lambda g: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((n_dyn, Lp), lambda g: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((block_t, n_dyn, Lp), rev, memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_t, n_dyn, Lp), rev, memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((Tp, n_dyn, Lp), jnp.float32),
-            jax.ShapeDtypeStruct((Tp, n_dyn, Lp), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((n_dyn, Lp), jnp.float32)],
-        interpret=_interpret(),
-    )(filt_p, prior_p, tlat_p, tdyn, init_p)
-
-    return smooth[:T, :, :L], rout[:T, :, :L]
+    Lp = _pow2(L)
+    sds = jax.ShapeDtypeStruct((T, n_dyn, Lp), jnp.float32)
+    smooth, r = _call(
+        functools.partial(_smoother_kernel, n_dyn=n_dyn, T=T,
+                          uniform_rows=tuple(uniform_rows)),
+        [sds, sds], interpret, "hmm_smoother",
+    )(_pad_lat(filt_xs, Lp, (2,)), _pad_lat(prior_xs, Lp, (2,)),
+      _pad_lat(jnp.swapaxes(tlat, -1, -2), Lp, (1, 2)),
+      tdyn.astype(jnp.float32), _pad_lat(smooth_init, Lp, (1,)))
+    return smooth[..., :L], r[..., :L]

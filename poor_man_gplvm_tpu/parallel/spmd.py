@@ -1,8 +1,9 @@
 """Multi-chip SPMD inference/EM over a ('data', 'time', 'neuron') device mesh.
 
 The reference is single-process, single-device (SURVEY.md §2.5); this module
-is the TPU-native scaling layer built on ``jax.shard_map`` + XLA collectives
-over ICI:
+is the scaling layer built on ``jax.shard_map`` + XLA collectives (NCCL on
+GPUs; the mesh follows the algorithm, since every card reaches every other
+at the same rate):
 
 * **data** (DP): independent chains/configs/sessions — the reference's main
   fan-out surface (model_selection_helper.py's serial loops become one SPMD
@@ -18,8 +19,9 @@ over ICI:
 
   - **cross-mesh fixed-point parallel-in-time scans** (``time_engine=
     'pscan'``, the default for single sequences): every device advances its
-    local C chunks simultaneously with the ops/pallas/parallel_scan pass
-    kernels, chunk-boundary carries cross devices via one ``ppermute`` per
+    local C chunks simultaneously with the same ops/pallas/parallel_scan
+    passes as one device, chunk-boundary carries cross devices via one
+    ``ppermute`` per
     pass, and global convergence is a ``pmax`` of boundary deltas.  A
     device boundary is just another chunk boundary, so the mesh converges
     in the same 2-3 passes as one chip and each pass costs
@@ -32,7 +34,8 @@ over ICI:
     pipeline, so a batch of B chains costs (B + n_time - 1) stage-times
     instead of B * n_time — the right schedule for many-chain fan-out.
     Exact — same semantics as the reference's host chunk loop
-    (decoder.py:283-324) with the carry riding ICI instead of HBM.
+    (decoder.py:283-324) with the carry crossing devices instead of staying
+    in device memory.
 
   Per-device memory is O(B * T / n_time) either way.
 
@@ -79,6 +82,7 @@ from poor_man_gplvm_tpu.ops.hmm import (
     _forward_scan_prob,
     prob_to_log,
 )
+from poor_man_gplvm_tpu.ops import emissions as _emissions
 from poor_man_gplvm_tpu.ops import mstep as fth
 
 __all__ = [
@@ -98,8 +102,8 @@ def factorize_devices(n, batch=1, n_neuron=None, n_time=None):
     time sharding buys O(T/d_time) per-device memory on the dominant scale
     (sequence length) plus pipeline throughput for batched chains, while
     neuron sharding parallelizes the emission matmuls and the M-step with a
-    single psum — worth ~2 ways until N_local drops under the MXU tile
-    (128).  Default split: time-heavy with neuron capped at 2.  Callers
+    single psum — worth ~2 ways until N_local gets too small to fill a
+    matmul.  Default split: time-heavy with neuron capped at 2.  Callers
     with different shapes (e.g. N=2000 neurons, short sequences) pass
     ``n_neuron``/``n_time`` to request axis sizes explicitly."""
     if n_neuron is not None or n_time is not None:
@@ -176,7 +180,7 @@ def make_mesh(n_devices=None, batch=1, devices=None, shape=None,
 def _ll_partial(y, tuning, ma2d, emission, noise_std, dt=1.0):
     """Per-neuron-shard partial emission LL (T_local, L): psum over
     'neuron' completes it.  Latent masks are applied post-psum.  Reuses the
-    MXU matmul forms from ops.emissions with an all-ones latent mask.
+    matmul forms from ops.emissions with an all-ones latent mask.
     ``dt`` may be a scalar or a per-time (T_local,) vector (the gain
     model's changing-dt path, reference decoder.py:73-85)."""
     ones_lat = jnp.ones(tuning.shape[0], dtype=bool)
@@ -360,18 +364,17 @@ def _staggered_backward(filt, trans, axis_name, n_time_valid=None):
 # ---------------------------------------------------------------------------
 
 
-def _pscan_smooth_local(ll, trans, scale, t_true, axis_name, tol=1e-6,
-                        scan_prec="highest"):
+def _pscan_smooth_local(ll, trans, scale, t_true, axis_name, tol=None):
     """Per-shard body of the cross-mesh fixed-point smoother.
 
     KEEP IN SYNC with ops/pallas/parallel_scan._smooth_parallel_jit: the
     chunk-layout packing, boundary-shift rules and validity bounds here
-    mirror the single-chip driver with the shifts crossing devices via
+    mirror the single-device driver with the shifts crossing devices via
     ppermute; a numerics or layout change there must land here too (both
     are pinned by equality tests against the prob engine).
 
     Each device holds a contiguous time shard and runs the
-    ops/pallas/parallel_scan pass kernels over its LOCAL C chunks; the
+    ops/pallas/parallel_scan passes over its LOCAL C chunks; the
     chunk-boundary carries cross devices with one ``ppermute`` per pass and
     global convergence is a ``pmax`` of the per-device boundary deltas.  A
     device boundary behaves exactly like a chunk boundary, so the whole
@@ -381,12 +384,12 @@ def _pscan_smooth_local(ll, trans, scale, t_true, axis_name, tol=1e-6,
     capped at n_time * C where the result is exact by induction.
 
     ll: (T_local, L) post-psum local log-likelihood (padded rows beyond
-    ``t_true`` are hard no-ops via the kernels' dynamic validity bound).
+    ``t_true`` are hard no-ops via the passes' dynamic validity bound).
     Returns (log_smooth, lml, log_post, ratios, log_acc) — local rows for
     the time-sharded outputs, replicated scalars/acc."""
     from poor_man_gplvm_tpu.ops.pallas import parallel_scan as _ps
-    from poor_man_gplvm_tpu.ops.pallas.scan_kernels import LANE, _round_up
 
+    tol = _ps.STRICT_TOL if tol is None else tol
     nt = lax.axis_size(axis_name)
     idx = lax.axis_index(axis_name)
     Tl, L = ll.shape
@@ -396,65 +399,46 @@ def _pscan_smooth_local(ll, trans, scale, t_true, axis_name, tol=1e-6,
     tdyn = (
         trans.Tdyn if is_joint else jnp.ones((1, 1), dtype=jnp.float32)
     )
-    cfg = _ps.choose_parallel_config(Tl, L, n_dyn)
-    if cfg is None:
-        # local shard too short for the single-chip heuristics (tests,
+    C = _ps.choose_parallel_config(Tl, L, n_dyn)
+    if C is None:
+        # local shard too short for the single-device heuristics (tests,
         # tiny problems): a minimal config is still correct — with C=1
         # the fixed point parallelizes purely across devices
-        cfg = (max(1, min(16, Tl // 16)), 8, 8)
-    C, bt_f, bt_b = cfg
+        C = max(1, min(16, Tl // 16))
     tc_eff = -(-Tl // C)
-    Lp = _round_up(L, LANE)
-    Tcp = _round_up(tc_eff, max(bt_f, bt_b))
 
     # local validity bounds (rows at global index >= t_true are padding)
     nv_fwd = jnp.clip(t_true - idx * Tl, 0, Tl)
-    # backward kernel recurses rows with local j < nv - 1
+    # backward pass recurses rows with local j < nv - 1
     nv_bwd = jnp.clip(t_true - 1 - idx * Tl, 0, Tl) + 1
 
     # ---- local chunk-layout weights ----
     m = jnp.max(ll, axis=1)
     w = jnp.exp(scale * (ll - m[:, None]))
-    w_flat = jnp.zeros((C * tc_eff, Lp), dtype=jnp.float32)
-    w_flat = w_flat.at[:Tl, :L].set(w)
-    w_c = jnp.zeros((Tcp, C, Lp), dtype=jnp.float32)
-    w_c = w_c.at[:tc_eff].set(
-        jnp.transpose(w_flat.reshape(C, tc_eff, Lp), (1, 0, 2))
-    )
-    tlat_p = jnp.zeros((n_dyn, Lp, Lp), dtype=jnp.float32)
-    tlat_p = tlat_p.at[:, :L, :L].set(tlat)
-    tlatT_p = jnp.zeros((n_dyn, Lp, Lp), dtype=jnp.float32)
-    tlatT_p = tlatT_p.at[:, :L, :L].set(jnp.swapaxes(tlat, -1, -2))
+    w_flat = jnp.zeros((C * tc_eff, L), dtype=jnp.float32).at[:Tl].set(w)
+    w_c = jnp.transpose(w_flat.reshape(C, tc_eff, L), (1, 0, 2))
+    tlat_f = tlat.astype(jnp.float32)
     tdyn_f = tdyn.astype(jnp.float32)
 
-    p_init = jnp.exp(trans.uniform_log_init())
+    init_p = jnp.exp(trans.uniform_log_init())
     if not is_joint:
-        p_init = p_init[None]
-    init_p = jnp.zeros((n_dyn, Lp), dtype=jnp.float32).at[:, :L].set(p_init)
-    uniform_p = jnp.zeros((n_dyn, Lp), dtype=jnp.float32).at[:, :L].set(
-        1.0 / (n_dyn * L)
-    )
+        init_p = init_p[None]
+    uniform_p = jnp.full((n_dyn, L), 1.0 / (n_dyn * L), dtype=jnp.float32)
 
     vma = jax.typeof(ll).vma | {axis_name}
     prom = partial(_match_vma, target_vma=vma)
-    # interpret-mode pallas under shard_map requires every kernel operand
-    # to carry the same varying-mesh-axes; promote the replicated
-    # transition matrices to match the data
-    tlat_p, tlatT_p, tdyn_f = prom(tlat_p), prom(tlatT_p), prom(tdyn_f)
+    # the passes' scan carries must keep one varying-mesh-axes type;
+    # promote the replicated transition matrices to match the data
+    tlat_f, tdyn_f = prom(tlat_f), prom(tdyn_f)
 
-    ins0 = jnp.broadcast_to(uniform_p[:, None, :], (n_dyn, C, Lp))
+    ins0 = jnp.broadcast_to(uniform_p[:, None, :], (n_dyn, C, L))
     ins0 = prom(jnp.where(
         (idx == 0)
         & (jax.lax.broadcasted_iota(jnp.int32, (1, C, 1), 1) == 0),
         init_p[:, None, :], ins0,
     ))
 
-    out_vma = tuple(vma)
-    fwd = partial(
-        _ps._pfilter_pass, C=C, block_t=bt_f, tc_eff=tc_eff,
-        n_valid=nv_fwd, uniform_rows=trans.uniform_rows, out_vma=out_vma,
-        scan_prec=scan_prec,
-    )
+    fwd = partial(_ps._pfilter_pass, tc_eff=tc_eff, n_valid=nv_fwd)
     perm_f = [(i, i + 1) for i in range(nt - 1)]
     max_passes = nt * C
 
@@ -465,7 +449,7 @@ def _pscan_smooth_local(ll, trans, scale, t_true, axis_name, tol=1e-6,
 
     def f_body(state):
         ins, _delta, k = state
-        _, _, fin = fwd(w_c, tlat_p, tdyn_f, ins, finals_only=True)
+        _, _, fin = fwd(w_c, tlat_f, tdyn_f, ins, finals_only=True)
         new_ins = gshift_f(fin)
         # pmax makes the delta axis-invariant; promote it back so the
         # loop carry's varying-mesh-axes type stays stable
@@ -482,12 +466,9 @@ def _pscan_smooth_local(ll, trans, scale, t_true, axis_name, tol=1e-6,
     )
     ins_used, _fd, _fk = lax.while_loop(fp_cond, f_body, fstate)
     # the emit pass stores the per-step normalizers (invalid rows hold 1.0)
-    post_c, svals, _fin = fwd(w_c, tlat_p, tdyn_f, ins_used,
+    post_c, svals, _fin = fwd(w_c, tlat_f, tdyn_f, ins_used,
                               finals_only=False)
-    ratios = (
-        jnp.log(jnp.transpose(svals)[:, :tc_eff].reshape(-1)[:Tl])
-        + scale * m
-    )
+    ratios = jnp.log(jnp.transpose(svals).reshape(-1)[:Tl]) + scale * m
     global_t = idx * Tl + jnp.arange(Tl)
     ratios = jnp.where(global_t < t_true, ratios, 0.0)
     lml = lax.psum(jnp.sum(ratios), axis_name)
@@ -499,7 +480,7 @@ def _pscan_smooth_local(ll, trans, scale, t_true, axis_name, tol=1e-6,
     jc = jnp.clip(local_j, 0, Tl - 1)
     c_j, tau_j = jc // tc_eff, jc % tc_eff
     pt_local = lax.dynamic_slice(
-        post_c, (tau_j, 0, c_j, 0), (1, n_dyn, 1, Lp)
+        post_c, (tau_j, 0, c_j, 0), (1, n_dyn, 1, L)
     )[0, :, 0, :]
     pt1 = lax.psum(jnp.where(owner, pt_local, 0.0), axis_name)
     chunk_ids = jnp.arange(C)
@@ -521,15 +502,12 @@ def _pscan_smooth_local(ll, trans, scale, t_true, axis_name, tol=1e-6,
     ))
 
     bwd = partial(
-        _ps._psmooth_pass, C=C, tc_eff=tc_eff, n_valid=nv_bwd,
-        uniform_rows=trans.uniform_rows, marginal=False, out_vma=out_vma,
-        scan_prec=scan_prec,
+        _ps._psmooth_pass, tc_eff=tc_eff, n_valid=nv_bwd, marginal=False,
     )
 
     def b_body(state):
         ins, _delta, k = state
-        (fin,) = bwd(post_c, tlat_p, tlatT_p, tdyn_f, ins,
-                     block_t=bt_f, finals_only=True)
+        (fin,) = bwd(post_c, tlat_f, tdyn_f, ins, finals_only=True)
         new_ins = gshift_b(fin)
         delta = prom(lax.pmax(jnp.max(jnp.abs(new_ins - ins)), axis_name))
         return new_ins, delta, k + 1
@@ -539,14 +517,13 @@ def _pscan_smooth_local(ll, trans, scale, t_true, axis_name, tol=1e-6,
          prom(jnp.array(0, jnp.int32)))
     )
     ins_bwd, _bd, _bk = lax.while_loop(fp_cond, b_body, bstate)
-    out_c, r_c, _f = bwd(post_c, tlat_p, tlatT_p, tdyn_f, ins_bwd,
-                         block_t=bt_b, finals_only=False)
+    out_c, r_c, _f = bwd(post_c, tlat_f, tdyn_f, ins_bwd, finals_only=False)
 
-    # r rows are zeroed on invalid steps inside the kernel, so the local
+    # r rows are zeroed on invalid steps inside the pass, so the local
     # contraction sums only real (t, t+1) pairs; psum completes it
     acc_raw = jnp.einsum("tdci,tecj->deij", post_c, r_c,
                          precision=jax.lax.Precision.HIGHEST)
-    acc_raw = lax.psum(acc_raw, axis_name)[:, :, :L, :L]
+    acc_raw = lax.psum(acc_raw, axis_name)
     # scale with the UNpromoted (replicated) matrices so acc stays
     # axis-invariant, matching its P() out_spec
     acc = (
@@ -556,8 +533,8 @@ def _pscan_smooth_local(ll, trans, scale, t_true, axis_name, tol=1e-6,
     if not is_joint:
         acc = acc[0, 0]
 
-    smooth_l = _ps._chunk_to_flat(out_c, tc_eff, Tl)[:, :, :L]
-    post_l = _ps._chunk_to_flat(post_c, tc_eff, Tl)[:, :, :L]
+    smooth_l = _ps._chunk_to_flat(out_c, tc_eff, Tl)
+    post_l = _ps._chunk_to_flat(post_c, tc_eff, Tl)
     if not is_joint:
         smooth_l, post_l = smooth_l[:, 0], post_l[:, 0]
     return (
@@ -609,10 +586,10 @@ def sharded_smooth(
 
     * ``'pscan'`` — cross-mesh fixed-point parallel-in-time scans: every
       device advances its local chunk batch simultaneously (the
-      ops/pallas/parallel_scan kernels locally), with chunk-boundary
+      ops/pallas/parallel_scan passes locally), with chunk-boundary
       carries crossing devices via ``ppermute`` and global convergence by
       ``pmax``; a device boundary is just another chunk boundary, so the
-      whole mesh converges in the same 2-3 passes as one chip.  Wall-clock
+      whole mesh converges in the same 2-3 passes as one device.  Wall-clock
       per pass is O(T / (n_time * C_local)) sequential steps — the time
       axis multiplies chunk parallelism instead of serializing.
     * ``'pipeline'`` — the exact staged-ppermute carry hand-off (one
@@ -682,15 +659,9 @@ def sharded_smooth(
             if choose_parallel_config(Tl, L, n_dyn) is not None
             else "pipeline"
         )
-    from poor_man_gplvm_tpu.ops.pallas import parallel_scan as _psmod
-
     fn = _smooth_program(
         mesh, observation_model, dt_l is not None, noise_std.ndim == 1,
         time_engine,
-        # set_scan_precision reaches the multichip pscan recursion dots too;
-        # the pipeline engine is precision-independent, so keep its cache
-        # key stable across flips
-        _psmod._SCAN_PRECISION if time_engine == "pscan" else "highest",
     )
     log_smooth, lml, log_causal, ratios, log_acc = fn(
         y_p, tuning_p, ma_p, ma_latent, noise_std, dt_p,
@@ -708,14 +679,12 @@ def sharded_smooth(
 
 @_lru_cache(maxsize=32)
 def _smooth_program(mesh, observation_model, has_dt, noise_is_vec,
-                    time_engine="pipeline", scan_prec="highest"):
+                    time_engine="pipeline"):
     """Jitted sharded-smoother program, cached per (mesh, emission, dt/noise
-    layout, time engine, scan precision) so repeated calls (the EM loop) hit
-    the jit trace cache instead of re-tracing every iteration.  Everything
-    value-like — transition matrices, likelihood scale, valid length —
-    enters as an operand.  ``scan_prec`` only reaches the pscan engine's
-    recursion dots; the pipeline engine always passes "highest" so
-    precision flips don't retrace it."""
+    layout, time engine) so repeated calls (the EM loop) hit the jit trace
+    cache instead of re-tracing every iteration.  Everything value-like —
+    transition matrices, likelihood scale, valid length — enters as an
+    operand."""
 
     def local(y_b, tuning_b, ma_b, ma_lat, noise_b, dt_b, scale, t_true,
               trans):
@@ -735,8 +704,7 @@ def _smooth_program(mesh, observation_model, has_dt, noise_is_vec,
         ll = jnp.where(row_real & ~ma_lat[None, :], MASK_NEG, ll)
 
         if time_engine == "pscan":
-            return _pscan_smooth_local(ll, trans, scale, t_true, "time",
-                                       scan_prec=scan_prec)
+            return _pscan_smooth_local(ll, trans, scale, t_true, "time")
 
         post, ratios, lml, _final = _staggered_forward(
             ll[None], trans, scale, "time"
@@ -852,8 +820,11 @@ def make_sharded_em_step(
         # y (Bl, Tl, Nl)
         # ---- M-step (neuron-sharded params; stats psum'd over time) ----
         post = jnp.exp(log_post)
+        # grouped statistics at the configured statistics precision
+        # (f32-exact by default; ops/emissions.PRECISION)
         y_w = lax.psum(
-            jnp.einsum("btl,btn->bln", post, y), "time"
+            jnp.einsum("btl,btn->bln", post, y,
+                       precision=_emissions.PRECISION), "time"
         )  # (Bl, L, Nl)
         t_w = lax.psum(post.sum(axis=1), "time")  # (Bl, L)
 

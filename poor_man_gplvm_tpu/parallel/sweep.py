@@ -1,7 +1,7 @@
 """Batched hyperparameter sweeps: one compiled program for the whole grid.
 
 The reference's model selection runs a serial Python loop over configs and
-chains (reference model_selection_helper.py:199-227, :54-60) — the main TPU
+chains (reference model_selection_helper.py:199-227, :54-60) — the main
 fan-out surface (SURVEY.md §2.5, §3.5).  Here the entire (config x chain)
 batch runs as ONE vmapped device program: batched transition matrices,
 batched while-loop Adam M-steps, batched forward/backward scans.  Batching

@@ -1,6 +1,6 @@
 """Matplotlib plotting utilities.
 
-TPU-native equivalent of the matplotlib half of reference
+Equivalent of the matplotlib half of reference
 poor_man_gplvm/plot_helper.py (~40 utilities; the plotly half lives in
 :mod:`poor_man_gplvm_tpu.plotting.plotly_helpers` and is gated on plotly
 being installed).  Functions keep the reference's signatures; rendering

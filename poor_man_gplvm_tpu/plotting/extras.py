@@ -1,7 +1,7 @@
 """Additional plotting utilities: rasters, 3-D scatter animation, bootstrap
 error bands, significance stars, multipage export.
 
-TPU-native equivalent of the unique utilities in reference
+Equivalent of the unique utilities in reference
 poor_man_gplvm/_plot_helper_backup.py (the parts not superseded by
 plot_helper.py).
 """

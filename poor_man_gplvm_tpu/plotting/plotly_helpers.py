@@ -1,6 +1,6 @@
 """Plotly plotting utilities (gated: plotly is an optional dependency).
 
-TPU-native equivalent of the plotly half of reference
+Equivalent of the plotly half of reference
 poor_man_gplvm/plot_helper.py (save_fig_plotly, plot_pynapple_data_plotly,
 add_vertical_shades, set_plotly_fonts).  Importing this module succeeds
 without plotly; calling any function raises a clear ImportError.

@@ -1,6 +1,6 @@
 """Model selection: hyperparameter grids, multi-chain fitting, evaluation.
 
-TPU-native equivalent of the reference selection subsystem
+Equivalent of the reference selection subsystem
 (reference: poor_man_gplvm/model_selection_helper.py).  API and metric
 definitions match; the per-(config x chain) fan-out can additionally run as
 one SPMD program over a device mesh (see poor_man_gplvm_tpu.parallel.sweep).

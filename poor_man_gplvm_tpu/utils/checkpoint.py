@@ -2,7 +2,7 @@
 
 The reference's only persistence is pickling the model object (dropping jit
 closures, reference core.py:757-767) plus periodic in-memory snapshots
-(``save_every``).  The TPU-native equivalent (SURVEY.md §5): durable
+(``save_every``).  The equivalent here (SURVEY.md §5): durable
 on-disk checkpoints of ``(params, opt_state, log_posterior, rng, step)``
 per EM iteration, orbax-backed with a numpy ``.npz`` fallback, and a
 ``fit_em(..., checkpoint_dir=, checkpoint_every=, resume=)`` integration on

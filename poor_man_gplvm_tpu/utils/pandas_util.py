@@ -1,6 +1,6 @@
 """Declarative DataFrame filtering: spec-tree -> (mask, pandas query string).
 
-TPU-native equivalent of reference poor_man_gplvm/pandas_util.py: logic nodes
+Equivalent of reference poor_man_gplvm/pandas_util.py: logic nodes
 (``all``/``any``/``not`` as dicts or tagged lists), leaf conditions
 ``[col, op, value?, opts?]`` with comparator / membership / between / null /
 string operators, and an implicit-AND list form.

@@ -1,7 +1,7 @@
 """Profiling helpers: device traces and wall-clock phase timers.
 
 The reference's only observability is tqdm bars and returned histories
-(SURVEY.md §5); TPU-native equivalents: ``jax.profiler`` trace capture (for
+(SURVEY.md §5); equivalents here: ``jax.profiler`` trace capture (for
 xprof/tensorboard) and a lightweight phase timer used by
 ``fit_em(profile=True)``.
 """

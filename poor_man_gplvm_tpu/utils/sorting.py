@@ -1,6 +1,6 @@
 """Post-fit neuron sorting + numpy helper kernels.
 
-TPU-native equivalent of reference poor_man_gplvm/utils.py.  NOTE: the
+Equivalent of reference poor_man_gplvm/utils.py.  NOTE: the
 reference README calls this function ``post_fit_sort_neurons`` (plural) but
 defines ``post_fit_sort_neuron`` — we keep the defined name and add the
 plural as an alias (reference README.md:162 vs utils.py:43, a stale doc).

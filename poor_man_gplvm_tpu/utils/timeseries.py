@@ -3,7 +3,7 @@
 The reference hard-depends on `pynapple` for time-indexed results and
 interval algebra (reference core.py:22, analysis_helper.py, test.py).  This
 module provides a small, numpy-native implementation of the subset of that
-API the framework uses, so the TPU framework runs without pynapple.  When
+API the framework uses, so the framework runs without pynapple.  When
 pynapple IS installed, :mod:`poor_man_gplvm_tpu.utils.compat` prefers it.
 
 Implemented: ``Ts``, ``Tsd``, ``TsdFrame``, ``IntervalSet`` with

@@ -1,7 +1,7 @@
 """Statistical model validation: circular-shuffle nulls, decode-and-threshold
 significance, posterior entropy, jump verification.
 
-TPU-native equivalent of reference poor_man_gplvm/test.py (the reference's
+Equivalent of reference poor_man_gplvm/test.py (the reference's
 "test" module is statistical validation run manually, not a unit test —
 SURVEY.md §4) and poor_man_gplvm/verify_latent_jump.py.
 """
@@ -10,9 +10,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-import tqdm
-
 from poor_man_gplvm_tpu.utils import compat
+from poor_man_gplvm_tpu.utils.progress import progress
 
 __all__ = [
     "circular_shuffle_data",
@@ -63,9 +62,7 @@ def shuffle_and_decode(model, spk_tsdf, n_time_per_chunk=10000, dt_l=1,
             spk_tsdf, n_shuffle=n_shuffle, ep=ep, seed=seed
         )
         decoding_res_l = []
-        for y_shuffled in tqdm.tqdm(
-            y_shuffled_l, total=n_shuffle, disable=not verbose
-        ):
+        for y_shuffled in progress(y_shuffled_l, verbose, total=n_shuffle):
             if decoder_type == "naive_bayes":
                 res = model.decode_latent_naive_bayes(
                     y_shuffled, n_time_per_chunk=n_time_per_chunk, dt_l=dt_l
@@ -127,8 +124,8 @@ def shuffle_and_decode(model, spk_tsdf, n_time_per_chunk=10000, dt_l=1,
                 observation_model=obs,
             )
         ))
-        for _ in tqdm.tqdm(range(0, n_shuffle, shuffle_batch_size),
-                           disable=not verbose):
+        for _ in progress(range(0, n_shuffle, shuffle_batch_size),
+                          verbose):
             log_post, lml_l, lml_tot, ll = nb(jnp.asarray(_next_batch()))
             out_batches.append({
                 "log_posterior_latent": np.asarray(log_post),
@@ -156,8 +153,8 @@ def shuffle_and_decode(model, spk_tsdf, n_time_per_chunk=10000, dt_l=1,
         dec = jax.jit(jax.vmap(
             lambda y: prog(y, tuning, hyper, trans, ma_neuron, ma_latent, 1.0)
         ))
-        for _ in tqdm.tqdm(range(0, n_shuffle, shuffle_batch_size),
-                           disable=not verbose):
+        for _ in progress(range(0, n_shuffle, shuffle_batch_size),
+                          verbose):
             res = dec(jnp.asarray(_next_batch()))
             batch = {
                 # log_likelihood_all is None under checkpoint/filter memory

@@ -1,6 +1,6 @@
 """Post-fit workflow for the ACh photometry dataset.
 
-TPU-native equivalent of reference
+Equivalent of reference
 poor_man_gplvm/post_fit_workflow/post_fit_ach_dataset.py: ACh ramp-onset
 detection, event-triggered analyses with circular-shift nulls, peri-event
 clustering, feature preparation, sleep-state segregation, distance-vs-label

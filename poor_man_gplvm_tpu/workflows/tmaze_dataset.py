@@ -1,6 +1,6 @@
 """Post-fit workflow for the T-maze dataset.
 
-TPU-native equivalent of reference
+Equivalent of reference
 poor_man_gplvm/post_fit_workflow/post_fit_tmaze_dataset.py: latent
 classification against position/speed (spatial / immobility / off-maze via
 DBSCAN), latent-field properties (incl. circular statistics on a wrapped

@@ -1,6 +1,6 @@
 """Bilateral (two-hemisphere) GPLVM pipeline.
 
-TPU-native equivalent of reference bilat_run.py: per-hemisphere unit
+Equivalent of reference bilat_run.py: per-hemisphere unit
 collection (CellExplorer/Kilosort counts with region + hemisphere masks),
 optional position-supervised posterior init, independent L/R model fits,
 decode, and npz + mat export with the full config recorded.

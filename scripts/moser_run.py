@@ -1,6 +1,6 @@
 """Moser-session pipeline: Bayes-decoder baseline + GPLVM fit/decode.
 
-TPU-native equivalent of reference PMGPLVM_moser_run.py, with its two bugs
+Equivalent of reference PMGPLVM_moser_run.py, with its two bugs
 fixed: it unpacked 6 of preprocess_moser_data's 7 return values
 (reference PMGPLVM_moser_run.py:55 vs root core.py:684) and referenced the
 nonexistent model attributes ``tuning_curves``/``latent_bin_centers``

@@ -130,7 +130,7 @@ def make_data(kind, T, N, seed=0):
 def build_models(case_name, ref_cls_name, engine, N, L):
     install_reference_stubs()
     import poor_man_gplvm as ref_pkg
-    import poor_man_gplvm_tpu as tpu_pkg
+    import poor_man_gplvm_tpu as pmg_pkg
 
     kwargs = dict(
         n_latent_bin=L, tuning_lengthscale=5.0, movement_variance=1.0,
@@ -142,20 +142,20 @@ def build_models(case_name, ref_cls_name, engine, N, L):
         kwargs["noise_std"] = 0.7
 
     ref_model = getattr(ref_pkg, ref_cls_name)(N, **kwargs)
-    tpu_model = getattr(tpu_pkg, ref_cls_name)(
+    pmg_model = getattr(pmg_pkg, ref_cls_name)(
         N, inference_engine=engine, **kwargs
     )
     # pin identical params (both packages init from rng_init, but parity
     # must not depend on matching jax.random call order)
-    tpu_model.params = jnp.asarray(np.asarray(ref_model.params))
-    tpu_model.tuning = jnp.asarray(np.asarray(ref_model.tuning))
-    return ref_model, tpu_model
+    pmg_model.params = jnp.asarray(np.asarray(ref_model.params))
+    pmg_model.tuning = jnp.asarray(np.asarray(ref_model.tuning))
+    return ref_model, pmg_model
 
 
 def run_case(case_name, kind, ref_cls_name, engine, T=300, N=12, L=25,
              n_iter=3, n_time_per_chunk=97):
     """Fit + decode + NB-decode parity for one model class / engine."""
-    ref_model, tpu_model = build_models(case_name, ref_cls_name, engine, N, L)
+    ref_model, pmg_model = build_models(case_name, ref_cls_name, engine, N, L)
     y = make_data(kind, T, N)
 
     # shared posterior init from the reference's own sampler
@@ -174,15 +174,15 @@ def run_case(case_name, kind, ref_cls_name, engine, T=300, N=12, L=25,
         log_posterior_init=jnp.asarray(log_post_init_np),
         n_time_per_chunk=n_time_per_chunk, verboase=False,
     )
-    em_tpu = tpu_model.fit_em(
+    em_pmg = pmg_model.fit_em(
         y, key=jr.PRNGKey(3), n_iter=n_iter,
         log_posterior_init=jnp.asarray(log_post_init_np),
         n_time_per_chunk=n_time_per_chunk, verboase=False,
     )
     errs["fit_log_marginal_l"] = rel_err(
-        np.asarray(em_tpu["log_marginal_l"]), np.asarray(em_ref["log_marginal_l"])
+        np.asarray(em_pmg["log_marginal_l"]), np.asarray(em_ref["log_marginal_l"])
     )
-    errs["fit_posterior"] = abs_err(em_tpu["posterior"], em_ref["posterior"])
+    errs["fit_posterior"] = abs_err(em_pmg["posterior"], em_ref["posterior"])
 
     # decode with the SAME tuning so decode parity is isolated from any
     # M-step drift
@@ -190,17 +190,17 @@ def run_case(case_name, kind, ref_cls_name, engine, T=300, N=12, L=25,
     dec_ref = ref_model.decode_latent(
         y, tuning=tuning, n_time_per_chunk=n_time_per_chunk
     )
-    dec_tpu = tpu_model.decode_latent(
+    dec_pmg = pmg_model.decode_latent(
         y, tuning=tuning, n_time_per_chunk=n_time_per_chunk
     )
     errs["decode_log_marginal_final"] = rel_err(
-        dec_tpu["log_marginal_final"], dec_ref["log_marginal_final"]
+        dec_pmg["log_marginal_final"], dec_ref["log_marginal_final"]
     )
     errs["decode_posterior_all"] = abs_err(
-        dec_tpu["posterior_all"], dec_ref["posterior_all"]
+        dec_pmg["posterior_all"], dec_ref["posterior_all"]
     )
     errs["decode_one_step_pred"] = rel_err(
-        dec_tpu["log_one_step_predictive_marginals_all"],
+        dec_pmg["log_one_step_predictive_marginals_all"],
         dec_ref["log_one_step_predictive_marginals_all"],
     )
     tkeys = (
@@ -208,19 +208,19 @@ def run_case(case_name, kind, ref_cls_name, engine, T=300, N=12, L=25,
     )
     for k in tkeys:
         fn = abs_err if k.startswith("p_") else log_rel_err
-        errs[f"decode_{k}"] = fn(dec_tpu[k], dec_ref[k])
+        errs[f"decode_{k}"] = fn(dec_pmg[k], dec_ref[k])
 
     nb_ref = ref_model.decode_latent_naive_bayes(
         y, tuning=tuning, n_time_per_chunk=n_time_per_chunk
     )
-    nb_tpu = tpu_model.decode_latent_naive_bayes(
+    nb_pmg = pmg_model.decode_latent_naive_bayes(
         y, tuning=tuning, n_time_per_chunk=n_time_per_chunk
     )
     errs["nb_log_marginal_total"] = rel_err(
-        nb_tpu["log_marginal_total"], nb_ref["log_marginal_total"]
+        nb_pmg["log_marginal_total"], nb_ref["log_marginal_total"]
     )
     errs["nb_posterior_latent"] = abs_err(
-        nb_tpu["posterior_latent"], nb_ref["posterior_latent"]
+        nb_pmg["posterior_latent"], nb_ref["posterior_latent"]
     )
     return errs
 
@@ -236,7 +236,7 @@ def run_gain_case(engine, T=300, N=12, L=25, n_iter=3, n_time_per_chunk=97):
         PoissonGPLVMGain1D_gain as RefGain,
     )
     from poor_man_gplvm_tpu.experimental import (
-        PoissonGPLVMGain1D_gain as TpuGain,
+        PoissonGPLVMGain1D_gain as PmgGain,
     )
 
     kwargs = dict(
@@ -244,9 +244,9 @@ def run_gain_case(engine, T=300, N=12, L=25, n_iter=3, n_time_per_chunk=97):
         p_move_to_jump=0.02, p_jump_to_move=0.05, rng_init_int=123,
     )
     ref_model = RefGain(N, **kwargs)
-    tpu_model = TpuGain(N, inference_engine=engine, **kwargs)
-    tpu_model.params = jnp.asarray(np.asarray(ref_model.params))
-    tpu_model.tuning = jnp.asarray(np.asarray(ref_model.tuning))
+    pmg_model = PmgGain(N, inference_engine=engine, **kwargs)
+    pmg_model.params = jnp.asarray(np.asarray(ref_model.params))
+    pmg_model.tuning = jnp.asarray(np.asarray(ref_model.tuning))
 
     y = make_data("poisson", T, N)
     log_post_init, _ = ref_model.init_latent_posterior(T, jr.PRNGKey(7))
@@ -264,14 +264,14 @@ def run_gain_case(engine, T=300, N=12, L=25, n_iter=3, n_time_per_chunk=97):
         n_time_per_chunk=n_time_per_chunk,
     )
     em_ref = ref_model.fit_em(y, **em_kw)
-    em_tpu = tpu_model.fit_em(y, **em_kw)
+    em_pmg = pmg_model.fit_em(y, **em_kw)
     errs["fit_log_marginal_l"] = rel_err(
-        np.asarray(em_tpu["log_marginal_l"]),
+        np.asarray(em_pmg["log_marginal_l"]),
         np.asarray(em_ref["log_marginal_l"]),
     )
-    errs["fit_posterior"] = abs_err(em_tpu["posterior"], em_ref["posterior"])
+    errs["fit_posterior"] = abs_err(em_pmg["posterior"], em_ref["posterior"])
     errs["fit_gain"] = rel_err(
-        np.asarray(em_tpu["gain_saved"][-1]), np.asarray(em_ref["gain_saved"][-1])
+        np.asarray(em_pmg["gain_saved"][-1]), np.asarray(em_ref["gain_saved"][-1])
     )
 
     # gain-aware NB decode with 2 gain-refit iterations, same tuning, gain
@@ -280,12 +280,12 @@ def run_gain_case(engine, T=300, N=12, L=25, n_iter=3, n_time_per_chunk=97):
     nb_kw = dict(tuning=tuning, n_time_per_chunk=n_time_per_chunk,
                  gain=jnp.ones(T), gain_refit_n_iter=2)
     nb_ref = ref_model.decode_latent_naive_bayes(y, **nb_kw)
-    nb_tpu = tpu_model.decode_latent_naive_bayes(y, **nb_kw)
+    nb_pmg = pmg_model.decode_latent_naive_bayes(y, **nb_kw)
     errs["nb_log_marginal_total"] = rel_err(
-        nb_tpu["log_marginal"], nb_ref["log_marginal"]
+        nb_pmg["log_marginal"], nb_ref["log_marginal"]
     )
     errs["nb_posterior_latent"] = abs_err(
-        np.exp(np.asarray(nb_tpu["log_posterior"])),
+        np.exp(np.asarray(nb_pmg["log_posterior"])),
         np.exp(np.asarray(nb_ref["log_posterior"])),
     )
     return errs
@@ -310,7 +310,7 @@ def run_basis_tuning_case(T=400, N=10, L=25, rank=6):
     # alias at jax.scipy so the nested `.special` access resolves
     ref_ftb.jscipy = jax.scipy
 
-    from poor_man_gplvm_tpu.ops import fit_tuning_with_basis as tpu_ftb
+    from poor_man_gplvm_tpu.ops import fit_tuning_with_basis as pmg_ftb
 
     rng = np.random.default_rng(0)
     spk = jnp.asarray(rng.poisson(1.0, size=(T, N)).astype(np.float32))
@@ -323,35 +323,35 @@ def run_basis_tuning_case(T=400, N=10, L=25, rank=6):
 
     errs = {}
     errs["basis_glm_tuning"] = rel_err(
-        tpu_ftb.glm_get_tuning((w, b), basis),
+        pmg_ftb.glm_get_tuning((w, b), basis),
         ref_ftb.glm_get_tuning((w, b), basis),
     )
     s_ref, t_ref = ref_ftb.group_spk_occupancy_chunk_neuron(
         spk, post, n_neuron_per_chunk=4
     )
-    s_tpu, t_tpu = tpu_ftb.group_spk_occupancy_chunk_neuron(
+    s_pmg, t_pmg = pmg_ftb.group_spk_occupancy_chunk_neuron(
         spk, post, n_neuron_per_chunk=4
     )
-    errs["basis_stats_s_b"] = rel_err(s_tpu, s_ref)
-    errs["basis_stats_t_b"] = rel_err(t_tpu, t_ref)
+    errs["basis_stats_s_b"] = rel_err(s_pmg, s_ref)
+    errs["basis_stats_t_b"] = rel_err(t_pmg, t_ref)
     obj_ref = ref_ftb.get_log_poisson_p_y_joint_params_oneneuron_grouped(
         (w[:, 0], b[0]), s_ref[:, 0], basis, t_ref, prior_hyper
     )
-    obj_tpu = tpu_ftb.get_log_poisson_p_y_joint_params_oneneuron_grouped(
-        (w[:, 0], b[0]), s_tpu[:, 0], basis, t_tpu, prior_hyper
+    obj_pmg = pmg_ftb.get_log_poisson_p_y_joint_params_oneneuron_grouped(
+        (w[:, 0], b[0]), s_pmg[:, 0], basis, t_pmg, prior_hyper
     )
-    errs["basis_objective"] = rel_err(obj_tpu, obj_ref)
+    errs["basis_objective"] = rel_err(obj_pmg, obj_ref)
 
     # solver self-check on the agreed objective: final summed loss must
     # improve on the init (jaxopt.LBFGS itself is stubbed, so the
     # reference solver output is unavailable for comparison)
     init_loss = sum(
-        float(tpu_ftb.get_log_poisson_p_y_joint_params_oneneuron_grouped(
-            (w[:, n], b[n]), s_tpu[:, n], basis, t_tpu, prior_hyper
+        float(pmg_ftb.get_log_poisson_p_y_joint_params_oneneuron_grouped(
+            (w[:, n], b[n]), s_pmg[:, n], basis, t_pmg, prior_hyper
         ))
         for n in range(N)
     )
-    _, _, final_err = tpu_ftb.m_step_get_tuning_all_neuron_grouped(
+    _, _, final_err = pmg_ftb.m_step_get_tuning_all_neuron_grouped(
         (w, b), spk, basis, post, prior_hyper, maxiter=30
     )
     errs["basis_solver_improves"] = (

@@ -1,6 +1,6 @@
 """End-to-end session pipeline: load -> filter units -> fit -> decode -> save.
 
-TPU-native equivalent of reference pipeline_sr.py (SLURM-targeted single-
+Equivalent of reference pipeline_sr.py (SLURM-targeted single-
 session GPLVM pipeline): Kilosort spike counts per probe, unit filtering by
 total spikes / mean rate / presence ratio, region+hemisphere selection,
 correlation sorting, PoissonGPLVMJump1D fit + decode, npz + mat export.

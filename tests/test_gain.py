@@ -84,8 +84,8 @@ def test_gain_shuffle(gain_sim):
 
 
 def test_gain_decode_pallas_engine_matches_prob():
-    """Gain decode through the pallas engine (changing-dt path) equals the
-    prob engine (VERDICT round-1 weak #8)."""
+    """Gain decode through the sequential kernel (changing-dt path; the
+    kernel's interpreter on the CPU) equals the prob engine."""
     import jax.numpy as jnp
     import jax.random as jr
     from poor_man_gplvm_tpu.experimental.gain import PoissonGPLVMGain1D_gain
@@ -100,7 +100,7 @@ def test_gain_decode_pallas_engine_matches_prob():
             inference_engine=engine,
         )
 
-    m_prob, m_pallas = make("prob"), make("pallas")
+    m_prob, m_pallas = make("prob"), make("pallas_interpret")
     _, y = m_prob.sample(T, key=jr.PRNGKey(0), gain=gain_true)
     y = np.asarray(y, dtype=np.float32)
 

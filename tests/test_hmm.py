@@ -46,6 +46,10 @@ def latent_setup():
 
 
 def _run(y, tuning, ma_neuron, ma_latent, trans, engine, chunk=10000, scale=1.0):
+    # "pallas" cases run the sequential Triton kernel; off the GPU the test
+    # asks for its interpreter explicitly
+    if engine == "pallas":
+        engine = "pallas_interpret"
     return hmm.smooth_combined_chunked(
         y, tuning, {}, trans, ma_neuron, ma_latent,
         likelihood_scale=scale, n_time_per_chunk=chunk, engine=engine,
@@ -141,10 +145,10 @@ def test_latent_mask(joint_setup):
 
 @pytest.mark.parametrize("bigT", [100, 300])
 def test_latent_mask_engine_parity(bigT):
-    """Regression: pallas smoother time-padding must be a true no-op when
-    the carried smoothed posterior contains exact zeros (masked latent
-    bins).  T deliberately NOT a multiple of the pallas block size so the
-    padded-tail path is exercised (previously deviated by ~0.145 abs)."""
+    """Regression: the kernel smoother must keep exact zeros (masked latent
+    bins) in the carried smoothed posterior and still match the prob
+    engine, whole and across chunk boundaries (an earlier blocked kernel
+    deviated by ~0.145 abs on its padded time tail)."""
     rng = np.random.default_rng(3)
     y = rng.poisson(1.5, size=(bigT, N)).astype(np.float32)
     tuning = rng.gamma(2.0, 1.0, size=(L, N)).astype(np.float32)
@@ -238,6 +242,8 @@ def test_transition_posterior_extraction(joint_setup):
 def test_checkpoint_memory_mode_exact(joint_setup, engine):
     """Activation-checkpointed smoothing is bit-identical to full storage."""
     y, tuning, ma_neuron, ma_latent, trans, _ = joint_setup
+    if engine == "pallas":  # the kernel's interpreter off the GPU
+        engine = "pallas_interpret"
     full = hmm.smooth_combined_chunked(
         y, tuning, {}, trans, ma_neuron, ma_latent, n_time_per_chunk=5,
         engine=engine, memory_mode="full",
@@ -343,9 +349,9 @@ def test_fit_em_memory_mode_kwarg():
 
 @pytest.mark.parametrize("T_case", [256, 257, 511, 30])
 def test_pallas_multilane_and_block_boundaries(T_case):
-    """Pallas kernels at L > 128 (two lane tiles) and T at/around block_t
-    boundaries match the prob engine exactly (block_t=256 padding logic,
-    multi-tile matvecs)."""
+    """The sequential kernels at L=130 (latent axis padded to the next
+    power of two, 256) and T around powers of two match the prob engine
+    exactly."""
     L_big, N = 130, 7
     rng = np.random.default_rng(1)
     y = jnp.asarray(rng.poisson(1.0, size=(T_case, N)).astype(np.float32))
@@ -359,7 +365,8 @@ def test_pallas_multilane_and_block_boundaries(T_case):
     for engine in ["prob", "pallas"]:
         outs[engine] = hmm.smooth_combined_chunked(
             y, tuning, {}, trans, jnp.ones((T_case, N)), jnp.ones(L_big),
-            n_time_per_chunk=max(T_case, 1), engine=engine,
+            n_time_per_chunk=max(T_case, 1),
+            engine="pallas_interpret" if engine == "pallas" else engine,
         )
     np.testing.assert_allclose(
         float(outs["pallas"][1]), float(outs["prob"][1]), rtol=1e-5
@@ -436,14 +443,21 @@ def test_latent_transition_pytree_aux_stable_under_tracing():
 
 
 def test_parallel_upgrade_respects_hbm_budget():
-    """The pallas -> pallas_parallel auto-upgrade only fires while the
-    parallel driver's full-sequence buffers provably fit, for EVERY
-    memory mode (the sequential chunked engines still run beyond that).
-    The carry-spec gate shares the same predicate."""
-    from poor_man_gplvm_tpu.ops.hmm import _parallel_upgrade_ok
+    """'auto' picks the parallel engine only while the parallel driver's
+    full-sequence buffers fit PARALLEL_BUDGET_FRAC of the device budget
+    (the sequential chunked engines still run beyond that)."""
+    from poor_man_gplvm_tpu.ops import engine as eng
 
-    for mm in ("auto", "full", "checkpoint", "filter", "filter_bf16"):
-        # north-star: ~10 GB of parallel buffers -> upgrades
-        assert _parallel_upgrade_ok(1_000_000, 500, 2, mm)
-        # 2x north-star would need ~20 GB -> sequential engine instead
-        assert not _parallel_upgrade_ok(2_000_000, 500, 2, mm)
+    budget = 16e9  # the budget the fractions were first tuned on
+    # north-star: ~10 GB of parallel buffers -> upgrades
+    assert eng.parallel_fits(1_000_000, 500, 2, budget)
+    assert eng.resolve_engine("auto", 1_000_000, 500, 2, on="gpu",
+                              budget=budget) == "pallas_parallel"
+    # 2x north-star would need ~20 GB -> sequential engine instead
+    assert not eng.parallel_fits(2_000_000, 500, 2, budget)
+    assert eng.resolve_engine("auto", 2_000_000, 500, 2, on="gpu",
+                              budget=budget) == "prob"
+    assert eng.resolve_engine("auto", 2_000_000, 100, 2, on="gpu",
+                              budget=budget / 4) == "pallas"
+    # the same shape fits a budget four times larger
+    assert eng.parallel_fits(2_000_000, 500, 2, 4 * budget)

@@ -147,12 +147,10 @@ def test_parallel_want_acc_false_identical_and_skips_joint():
     y = rng.poisson(1.5, size=(T, N)).astype(np.float32)
     tuning = rng.gamma(2.0, 1.0, size=(L, N)).astype(np.float32)
     trans = _joint_trans()
-    # choose_parallel_config deliberately ignores want_acc (one cached
-    # program per shape), so both runs use the identical launch config —
-    # but they are still two separately-compiled programs, and XLA may
-    # reassociate float reductions differently between them on real TPU.
-    # Bit-exact equality is only guaranteed on the CPU/interpret path,
-    # where both run the same pure-JAX reference passes.
+    # choose_parallel_config ignores want_acc, so both runs use the same
+    # chunk count — but they are two separately-compiled programs, and an
+    # accelerator's compiler may reassociate float reductions differently
+    # between them.  Bit-exact equality is only asserted on the CPU.
     on_cpu = jax.devices()[0].platform == "cpu"
     exact = (np.testing.assert_array_equal if on_cpu
              else lambda a, b: np.testing.assert_allclose(
@@ -173,8 +171,8 @@ def test_parallel_want_acc_false_identical_and_skips_joint():
 
 
 def test_parallel_tiny_T_falls_back():
-    """Sequences too short to chunk route to the sequential pallas engine
-    and still honor the full contract."""
+    """Sequences too short to chunk route to the platform's sequential
+    engine and still honor the full contract."""
     rng = np.random.default_rng(13)
     T = 40
     y = rng.poisson(1.5, size=(T, N)).astype(np.float32)
@@ -186,13 +184,17 @@ def test_parallel_tiny_T_falls_back():
 
 
 def test_choose_parallel_config_shapes():
+    """The chunk count C: DEFAULT_C for long sequences, halved until every
+    chunk holds MIN_CHUNK_LEN steps, None when even C=2 cannot."""
     assert ps.choose_parallel_config(30, 100, 2) is None
-    cfg = ps.choose_parallel_config(1_000_000, 500, 2)
-    assert cfg is not None
-    C, bt_f, bt_b = cfg
-    assert C >= 32 and bt_f >= 4 and bt_b >= 2
-    cfg_small = ps.choose_parallel_config(2048, 100, 2)
-    assert cfg_small is not None
+    assert ps.choose_parallel_config(1_000_000, 500, 2) == ps.DEFAULT_C
+    for T in (256, 601, 2048, 20_000, 100_000):
+        C = ps.choose_parallel_config(T, 100, 2)
+        assert C is not None and C >= 2 and C & (C - 1) == 0
+        assert T >= C * ps.MIN_CHUNK_LEN
+        assert C == ps.DEFAULT_C or T < 2 * C * ps.MIN_CHUNK_LEN
+    assert ps.carry_spec(100_000, 100, 2) == (
+        2, ps.choose_parallel_config(100_000, 100, 2), 100)
 
 
 def test_parallel_fit_em_end_to_end():
@@ -328,68 +330,3 @@ def test_fused_fit_em_warm_start_matches_loop():
     assert passes is not None and passes.shape == (4, 2)
     # middle iterations should settle fast (tuning drift is small)
     assert passes[1:].max() <= passes[0].max()
-
-
-def test_set_config_override():
-    """set_config_override forces the launch config (the documented HBM
-    escape hatch); None restores auto-choice."""
-    try:
-        ps.set_config_override((64, 8, 8))
-        assert ps.choose_parallel_config(1_000_000, 500, 2) == (64, 8, 8)
-        assert ps.choose_parallel_config(100_000, 100, 2) == (64, 8, 8)
-        # too-small problems still fall back to the sequential engine
-        assert ps.choose_parallel_config(16, 100, 2) is None
-    finally:
-        ps.set_config_override(None)
-    auto = ps.choose_parallel_config(1_000_000, 500, 2)
-    assert auto is not None and auto != (64, 8, 8)
-
-
-def test_set_scan_precision_plumbing_and_split():
-    """set_scan_precision: validates modes, flips scan_mode_key (the
-    model-layer fused caches key on it, so a flip retraces), and the
-    engine still matches the sequential reference on the interpret path
-    (off-TPU the reference passes are f32 regardless of mode).  The bf16
-    operand split must reconstruct f32 to bf16x3 accuracy."""
-    rng = np.random.default_rng(21)
-    y = rng.poisson(1.5, size=(500, N)).astype(np.float32)
-    tuning = rng.gamma(2.0, 1.0, size=(L, N)).astype(np.float32)
-    trans = _joint_trans()
-    ref = _run(y, tuning, trans, "prob")
-    with pytest.raises(ValueError):
-        ps.set_scan_precision("float16")
-    try:
-        ps.set_scan_precision("bf16x3")
-        assert ps.scan_mode_key() == (None, "bf16x3")
-        par = _run(y, tuning, trans, "pallas_parallel")
-        _assert_match(ref, par)
-    finally:
-        ps.set_scan_precision("highest")
-    assert ps.scan_mode_key() == (None, "highest")
-    # hi/lo split: |(hi + lo) - x| <= bf16 rounding of the residual
-    x = jnp.asarray(rng.standard_normal((64, 64)).astype(np.float32))
-    hi, lo = ps._split_bf16(x)
-    assert hi.dtype == jnp.bfloat16 and lo.dtype == jnp.bfloat16
-    recon = hi.astype(jnp.float32) + lo.astype(jnp.float32)
-    # residual-of-residual: |x - (hi + lo)| <= |x| * 2^-18 for the two
-    # nested bf16 roundings (~1e-5 at |x| ~ 3)
-    np.testing.assert_allclose(np.asarray(recon), np.asarray(x),
-                               rtol=0, atol=2e-5)
-    # bf16x3 dot error model: the 3-pass emulation drops the lo@lo cross
-    # term, whose per-product magnitude is |a||b|*2^-18 (each lo operand is
-    # the bf16 rounding residual, <= 2^-9 relative).  Over a K-length
-    # contraction of unit-scale operands the dropped terms sum with random
-    # signs: typical ~sqrt(K)*2^-18, worst-case K*2^-18 = 2.4e-4 at K=64.
-    # Observed max over this (32, 64) case is ~1.6e-4 — within the model.
-    a = jnp.asarray(rng.standard_normal((32, 64)).astype(np.float32))
-    d3 = ps._scan_dot(a, x, None, "bf16x3")
-    d0 = ps._scan_dot(a, x, None, "highest")
-    K = x.shape[0]
-    np.testing.assert_allclose(np.asarray(d3), np.asarray(d0),
-                               rtol=0, atol=K * 2.0 ** -18)
-    # ... and it must beat the 1-pass bf16 dot by >=1 order of magnitude
-    # (bf16 rounds the operands themselves: error ~sqrt(K)*2^-9 ~ 1.6e-2)
-    d1 = ps._scan_dot(a, x, None, "bf16")
-    err3 = float(jnp.max(jnp.abs(d3 - d0)))
-    err1 = float(jnp.max(jnp.abs(d1 - d0)))
-    assert err3 < err1 / 10.0
